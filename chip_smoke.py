@@ -5,18 +5,24 @@
 
 Phases, each printing one JSON line: (1) the device, (2) the build of
 every kernel from ``ray_tpu_torch/ops/csrc`` with nvcc, (3) each kernel
-held against its plain PyTorch version on the card at the serving
-path's shapes, with its device time from a cold L2 (CUDA-graph
+held against its plain PyTorch version on the card at the serving and
+training paths' shapes, with its device time from a cold L2 (CUDA-graph
 replay over copies of the inputs that overflow the L2), the time of a
 call from Python, its plain version's time, the time of one PyTorch
 call for the same function where there is one, and its bound,
 (4) ``ContinuousBatchingEngine`` serving Llama-3-8B at full width and
 depth in bf16 from random seeded weights, (5) the same engine with int8
 FFN weights, (6) a 2-layer full-width prefill on the card against the
-plain f32 version on the CPU, (7) the kernel list. Every kernel's
-launch count is zeroed just before each engine phase and read just
-after; a kernel of the path that never launched fails the run. The last
-line is the device summary; any failed check exits non-zero before it.
+plain f32 version on the CPU, (7) training Llama-3-8B at full width and
+depth (loss, backward, fused AdamW; remat and chunked cross-entropy) for
+a warm-up and three timed steps on one fixed batch, (8) a 2-layer
+full-width loss and its grads on the card against the plain f32
+version on the CPU, (9) the kernel list. Every kernel's launch count is
+zeroed just before each engine phase and each training step and read
+just after; a kernel of the path that never launched fails the run, and
+a training step must launch exactly K1 2L, K2 L, K3 L, K4 4L + 1 and K5
+0 times. The last line is the device summary; any failed check exits
+non-zero before it.
 
 Needs a CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); without a GPU,
 or without the ``ray_tpu_torch`` package beside it, it exits non-zero
@@ -26,8 +32,10 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,36 +76,24 @@ def bound_ms(nbytes: float, flops: float, flops_rate: float):
                                        else "operations")
 
 
-def time_ms(fn, *args, reps: int = 5) -> float:
-    """Device time of one call ``fn(*args)`` with a cold L2, as the
-    serving path finds its weights (each layer's were last read a whole
-    step earlier). The calls take turns over enough copies of the
-    tensor arguments to fill COLD_BYTES, four times the 50 MB L2, so no
-    call finds its inputs where an earlier one left them. At least 20
-    calls are captured in one CUDA graph, which takes the host's launch
-    cost out; the graph is replayed ``reps`` times between CUDA events
-    and the median replay is divided by its calls."""
+def graph_ms(calls, reps: int = 5) -> float:
+    """Device time of one of ``calls`` (functions of no argument, each
+    over its own inputs). At least 20 calls, taking turns over
+    ``calls``, are captured in one CUDA graph, which takes the host's
+    launch cost out; the graph is replayed ``reps`` times between CUDA
+    events and the median replay is divided by its calls."""
     import torch
-
-    def copy(a):
-        return a.clone() if isinstance(a, torch.Tensor) else a
-
-    nbytes = sum(a.numel() * a.element_size() for a in args
-                 if isinstance(a, torch.Tensor))
-    n_copies = max(1, -(-COLD_BYTES // nbytes))
-    arg_sets = [args] + [tuple(copy(a) for a in args)
-                         for _ in range(n_copies - 1)]
-    calls = max(20, n_copies)
+    n_calls = max(20, len(calls))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for a in arg_sets[:3]:
-            fn(*a)
+        for call in calls[:3]:
+            call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for i in range(calls):
-            fn(*arg_sets[i % n_copies])
+        for i in range(n_calls):
+            calls[i % len(calls)]()
     graph.replay()
     times = []
     for _ in range(reps):
@@ -107,9 +103,32 @@ def time_ms(fn, *args, reps: int = 5) -> float:
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph, arg_sets
+        times.append(start.elapsed_time(end) / n_calls)
+    del graph
     return sorted(times)[len(times) // 2]
+
+
+def n_cold_copies(nbytes: int) -> int:
+    """Copies of inputs of ``nbytes`` that fill COLD_BYTES."""
+    return max(1, -(-COLD_BYTES // nbytes))
+
+
+def time_ms(fn, *args, reps: int = 5) -> float:
+    """Device time of one call ``fn(*args)`` with a cold L2, as the
+    serving path finds its weights (each layer's were last read a whole
+    step earlier): ``graph_ms`` over enough copies of the tensor
+    arguments to fill COLD_BYTES, four times the 50 MB L2, so no call
+    finds its inputs where an earlier one left them."""
+    import torch
+
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    arg_sets = [args] + [tuple(copy(a) for a in args)
+                         for _ in range(n_cold_copies(nbytes) - 1)]
+    return graph_ms([functools.partial(fn, *a) for a in arg_sets], reps)
 
 
 def call_ms(fn, iters: int = 50) -> float:
@@ -179,6 +198,103 @@ def check_flash_attention(dev, gen):
     return rows
 
 
+def sdpa_backward_ms(q, k, v, do):
+    """Device time of the backward of one causal
+    ``F.scaled_dot_product_attention`` call on K/V repeated to every
+    query head -> (ms, name of SDPA's backward node). Each cold copy of
+    the inputs gets its own forward; ``graph_ms`` then captures calls of
+    the autograd node that forward left, made directly (not through the
+    autograd engine), so they run on the capturing stream."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import attention as att
+    h = q.shape[2]
+    base = [t.transpose(1, 2) for t in (q, att._repeat_kv(k, h),
+                                        att._repeat_kv(v, h), do)]
+    calls = []
+    for _ in range(n_cold_copies(sum(t.numel() * t.element_size()
+                                     for t in base))):
+        qt, kt, vt = (t.clone().requires_grad_() for t in base[:3])
+        node = F.scaled_dot_product_attention(qt, kt, vt,
+                                              is_causal=True).grad_fn
+        check("Attention" in node.name(),
+              f"SDPA's output has no attention backward: {node.name()}")
+        calls.append(functools.partial(node, base[3].clone()))
+    return graph_ms(calls), node.name()
+
+
+def rel_l2(diff, ref, dim=None):
+    """Relative L2 error, the reference's norm floored at an RMS of 1e-4
+    per element: dq of a query that sees one key is exactly 0, and the
+    kernel's f32 rounding noise there has no scale to be relative to."""
+    import torch
+    n = diff.numel() if dim is None else diff[0, 0].numel()
+    return (torch.linalg.vector_norm(diff, dim=dim)
+            / torch.linalg.vector_norm(ref.float(), dim=dim).clamp_min(
+                1e-4 * n ** 0.5))
+
+
+def check_flash_backward(dev, gen):
+    """K2 and K3 against their plain versions, from K1's o and lse and a
+    seeded dO, at the training path's attention shapes."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+    b, h, kvh, d = 1, 32, 8, 128
+    rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for s in (200, 512, 2048):
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+        do = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+        o, lse = att._flash_forward(q, k, v, True)
+        delta = att._delta(o, do)
+        args = (q, k, v, do, lse, delta, True)
+        got = {"flash_attention_bwd_dq": (att.flash_attention_bwd_dq(*args),),
+               "flash_attention_bwd_dkv": att.flash_attention_bwd_dkv(*args)}
+        want = {"flash_attention_bwd_dq": (att._bwd_dq_reference(*args),),
+                "flash_attention_bwd_dkv": att._bwd_dkv_reference(*args)}
+        torch.cuda.synchronize()
+        pairs = sum(min(i + 1, s) for i in range(s))
+        in_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d) + 8 * b * h * s
+        library, library_op = sdpa_backward_ms(q, k, v, do)
+        for name, flops, out_bytes, fn, plain in (
+                ("flash_attention_bwd_dq", 6.0 * d * pairs * b * h,
+                 2 * b * s * h * d, att.flash_attention_bwd_dq,
+                 att._bwd_dq_reference),
+                ("flash_attention_bwd_dkv", 8.0 * d * pairs * b * h,
+                 4 * b * s * kvh * d, att.flash_attention_bwd_dkv,
+                 att._bwd_dkv_reference)):
+            errs = {}
+            for tname, g_t, w_t in zip(("dq",) if name.endswith("dq")
+                                       else ("dk", "dv"),
+                                       got[name], want[name]):
+                diff = g_t.float() - w_t.float()
+                rel = rel_l2(diff, w_t).item()
+                # per query row of dq, per key row of dk/dv
+                worst = rel_l2(diff, w_t, dim=(2, 3)).max().item()
+                check(bool(torch.isfinite(g_t).all()),
+                      f"{name} S={s} {tname}: non-finite")
+                check(rel <= 2e-2, f"{name} S={s} {tname}: relative L2 "
+                      f"{rel} > 2e-2")
+                check(worst <= 5e-2, f"{name} S={s} {tname}: a row's "
+                      f"relative L2 {worst} > 5e-2")
+                errs[tname] = dict(max_abs_err=diff.abs().max().item(),
+                                   rel_l2_err=rel, worst_row_rel_l2_err=worst)
+            bms, by = bound_ms(in_bytes + out_bytes, flops, BF16_TENSOR_FLOPS)
+            rows[name].append(dict(
+                shape=[b, s, h, kvh, d],
+                max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                errors=errs, ms=time_ms(fn, *args),
+                call_ms=call_ms(lambda: fn(*args)),
+                plain_ms=time_ms(plain, *args),
+                library_ms=library if name.endswith("dq") else None,
+                library_op=library_op if name.endswith("dq") else None,
+                bound_ms=bms, bound_by=by))
+            emit("kernel_check", kernel=name, **rows[name][-1])
+        del got, want, q, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_rms_norm(dev, gen):
     import torch
     import torch.nn.functional as F
@@ -239,17 +355,21 @@ def check_int8_matmul(dev, gen):
 # phases 4-5: the engine at full Llama-3-8B width and depth
 # ---------------------------------------------------------------------------
 
+def _counted():
+    from ray_tpu_torch.ops import attention, int8_matmul, rms_norm
+    return {"flash_attention": attention.flash_attention,
+            "flash_attention_bwd_dq": attention.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": attention.flash_attention_bwd_dkv,
+            "rms_norm": rms_norm, "int8_matmul": int8_matmul}
+
+
 def reset_counts():
-    from ray_tpu_torch.ops import flash_attention, int8_matmul, rms_norm
-    for fn in (flash_attention, rms_norm, int8_matmul):
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def read_counts():
-    from ray_tpu_torch.ops import flash_attention, int8_matmul, rms_norm
-    return {"flash_attention": flash_attention.launches,
-            "rms_norm": rms_norm.launches,
-            "int8_matmul": int8_matmul.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 class FirstTokenClock:
@@ -327,6 +447,14 @@ def run_engine(dev, quantization, prompts):
 # phase 6: the card against the CPU on one prefill
 # ---------------------------------------------------------------------------
 
+def to_card(tree, dev, dtype):
+    if isinstance(tree, dict):
+        return {k: to_card(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_card(v, dev, dtype) for v in tree]
+    return tree.to(device=dev, dtype=dtype)
+
+
 def end_to_end_vs_cpu(dev):
     import numpy as np
     import torch
@@ -334,13 +462,7 @@ def end_to_end_vs_cpu(dev):
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     params_cpu = llama_init(SEED, cpu_cfg, device="cpu")
-
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        return tree.to(device=dev, dtype=cfg.dtype)
-
-    params_gpu = to_card(params_cpu)
+    params_gpu = to_card(params_cpu, dev, cfg.dtype)
     ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, 32))
     tokens = torch.from_numpy(ids)
     reset_counts()
@@ -361,6 +483,124 @@ def end_to_end_vs_cpu(dev):
     return dict(rel_l2_last_logits=rel, argmax_equal=bool(
         g.argmax() == c.argmax()), launches=counts,
         kv_shape=list(ks.shape))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training Llama-3-8B at full width and depth
+# ---------------------------------------------------------------------------
+
+def expected_train_counts(n_layers: int):
+    """Launches of one training step with remat: K1 in the forward and
+    again in each block's recompute, K2/K3 once per layer, K4 twice per
+    block in the forward and again in the recompute, plus the final
+    norm; the FFN is dense."""
+    return {"flash_attention": 2 * n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers,
+            "rms_norm": 4 * n_layers + 1, "int8_matmul": 0}
+
+
+def run_train(dev):
+    """bench_train's configuration and step, one warm-up step and
+    bench_train.STEPS timed ones, each ended by ``loss.item()``."""
+    import torch
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.scripts import bench_train as bt
+    cfg = LlamaConfig.llama3_8b(ce_chunk_tokens=bt.CE_CHUNK)
+    t_phase = time.perf_counter()
+    params, step, tokens, targets = bt.setup(cfg, bt.BATCH, bt.SEQ, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    want = expected_train_counts(cfg.n_layers)
+    losses, step_ms, counts = [], [], None
+    for i in range(1 + bt.STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step(tokens, targets).item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_counts = read_counts()
+        losses.append(loss)
+        check(step_counts == want,
+              f"train step {i} launches {step_counts} != {want}")
+        counts = step_counts if counts is None else {
+            k: counts[k] + step_counts[k] for k in counts}
+        if i == 0:
+            leaves = bt.parameters(params)
+            check(all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                      for t in leaves),
+                  "a parameter got no grad, or a non-finite one, on step 1")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    timed_ms = sum(step_ms[1:]) / bt.STEPS
+    tokens_per_s = bt.BATCH * bt.SEQ / (timed_ms / 1e3)
+    fields = dict(
+        n_layers=cfg.n_layers, batch=bt.BATCH, seq=bt.SEQ,
+        ce_chunk_tokens=cfg.ce_chunk_tokens, remat=cfg.remat,
+        init_s=t_init, losses=losses, step_ms=step_ms,
+        timed_step_ms=timed_ms, tokens_per_s=tokens_per_s,
+        mfu=tokens_per_s * cfg.flops_per_token() / bt.H100_BF16_DENSE_FLOPS,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches_per_step=want, launches=counts)
+    del step, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields["seconds"] = time.perf_counter() - t_phase
+    return fields, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the card against the CPU on one training loss and its grads
+# ---------------------------------------------------------------------------
+
+def train_vs_cpu(dev):
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import (
+        LlamaConfig, llama_init, llama_loss, unstack_layers)
+    from ray_tpu_torch.scripts.bench_train import parameters
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params_cpu = unstack_layers(llama_init(SEED, cpu_cfg, device="cpu"))
+    params_gpu = to_card(params_cpu, dev, cfg.dtype)
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, 65)))
+    tokens, targets = ids[:, :-1], ids[:, 1:]
+
+    def loss_and_grads(params, c, device):
+        for t in parameters(params):
+            t.requires_grad_(True)
+        loss = llama_loss(params, tokens.to(device), targets.to(device), c)
+        loss.backward()
+        grads = {
+            "embedding": params["embedding"].grad,
+            "lm_head": params["lm_head"].grad,
+            **{name: torch.stack([lp[name].grad for lp in params["layers"]])
+               for name in ("wq", "wk", "w2")}}
+        return loss.item(), {k: g.float().cpu() for k, g in grads.items()}
+
+    reset_counts()
+    loss_gpu, grads_gpu = loss_and_grads(params_gpu, cfg, dev)
+    counts = read_counts()
+    want = expected_train_counts(cfg.n_layers)
+    check(counts == want, f"card loss+grad launches {counts} != {want}")
+    loss_cpu, grads_cpu = loss_and_grads(params_cpu, cpu_cfg, "cpu")
+    rel_loss = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    check(rel_loss <= 1e-2, f"card vs CPU loss {loss_gpu} vs {loss_cpu}")
+    rel_grads = {}
+    for name, g in grads_gpu.items():
+        c = grads_cpu[name]
+        check(bool(torch.isfinite(g).all()), f"card grad {name} non-finite")
+        rel_grads[name] = (torch.linalg.vector_norm(g - c)
+                           / torch.linalg.vector_norm(c)).item()
+        check(rel_grads[name] <= 1e-1,
+              f"card vs CPU grad {name} relative L2 {rel_grads[name]} > 1e-1")
+    del params_gpu, params_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, rel_loss=rel_loss,
+                rel_l2_grads=rel_grads, launches=counts)
 
 
 def main() -> int:
@@ -398,6 +638,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     checks = {"flash_attention": check_flash_attention(dev, gen),
+              **check_flash_backward(dev, gen),
               "rms_norm": check_rms_norm(dev, gen),
               "int8_matmul": check_int8_matmul(dev, gen)}
 
@@ -416,9 +657,18 @@ def main() -> int:
 
     emit("end_to_end_vs_cpu", **end_to_end_vs_cpu(dev))
 
+    train, counts_train = run_train(dev)
+    emit("train", **train)
+    emit("train_vs_cpu", **train_vs_cpu(dev))
+
     sources = {
         "flash_attention": ("ray_tpu_torch/ops/csrc/attention.cu",
                             "ray_tpu/ops/attention.py:171", -1),
+        "flash_attention_bwd_dq": ("ray_tpu_torch/ops/csrc/attention_bwd.cu",
+                                   "ray_tpu/ops/attention.py:315", -1),
+        "flash_attention_bwd_dkv": (
+            "ray_tpu_torch/ops/csrc/attention_bwd.cu",
+            "ray_tpu/ops/attention.py:345", -1),
         "rms_norm": ("ray_tpu_torch/ops/csrc/rmsnorm.cu",
                      "ray_tpu/ops/rmsnorm.py:41", 0),
         "int8_matmul": ("ray_tpu_torch/ops/csrc/quant_matmul.cu",
@@ -429,9 +679,10 @@ def main() -> int:
         row = checks[kname][headline]
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=counts_bf16[kname] + counts_int8[kname],
+            launches=(counts_bf16[kname] + counts_int8[kname]
+                      + counts_train[kname]),
             max_abs_err=max(r["max_abs_err"] for r in checks[kname]),
-            ms=row["ms"], plain_ms=row["plain_ms"],
+            ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"],
             shapes=checks[kname]))

@@ -1,26 +1,34 @@
 """Llama-family decoder (Llama-2/3 architecture) in PyTorch: a port of
-ray_tpu/models/llama.py for serving.
+ray_tpu/models/llama.py for serving and training.
 
 Parameters keep the reference's stacked layout, a plain dict with every
 per-layer weight stacked on a leading n_layers axis and every
 projection stored [in, out] (``x @ W``), so a JAX parameter tree crosses
 over without reshaping (models/convert.py). The layer loop is a Python
-loop over views of those stacks (the reference's ``lax.scan``).
+loop over views of those stacks (the reference's ``lax.scan``). For
+training, :func:`unstack_layers` turns the stacks into one dict of leaf
+tensors per layer, so that each layer's grads land in their own tensors
+(the backward of a view ``stack[i]`` would build a zero tensor the size
+of the whole stack for every layer); every function here takes both
+forms.
 
-Kernels on this path: RMSNorm (K4), flash-attention forward in prefill
-(K1) and the weight-only int8 matmul in every FFN when the FFN is
-quantized (K5). The remaining large matrix products go to
-``torch.matmul``, as the reference leaves them to XLA. Decode attention
-over the cache is plain PyTorch, as in the reference.
+Kernels on this path: RMSNorm (K4), flash-attention forward (K1) and,
+under autograd, its backward (K2, K3), and the weight-only int8 matmul
+in every FFN when the FFN is quantized (K5, serving only). The remaining
+large matrix products go to ``torch.matmul``, as the reference leaves
+them to XLA. Decode attention over the cache is plain PyTorch, as in
+the reference.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import _attention_reference, flash_attention
@@ -44,6 +52,12 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     attention: str = "flash"  # flash | reference (ring/ulysses: later)
+    # Recompute each block in the backward (the reference's
+    # jax.checkpoint): only block inputs stay alive between the passes.
+    remat: bool = True
+    # Chunked cross-entropy: tokens per chunk (0 = dense loss), so the
+    # [B, S, vocab] f32 logits never exist (chunked_cross_entropy).
+    ce_chunk_tokens: int = 0
     moe_experts: int = 0
     moe_top_k: int = 2
 
@@ -67,7 +81,8 @@ class LlamaConfig:
         """Test-scale config."""
         defaults = dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
                         n_kv_heads=2, hidden_dim=128, max_seq_len=128,
-                        dtype=torch.float32, attention="reference")
+                        dtype=torch.float32, attention="reference",
+                        remat=False)
         defaults.update(kw)
         return LlamaConfig(**defaults)
 
@@ -168,9 +183,34 @@ def llama_init(seed: int, config: LlamaConfig,
     }
 
 
-def _layer(layers: Params, i: int) -> Params:
-    """Layer i's parameters: views into the stacks."""
+def _layer(layers, i: int) -> Params:
+    """Layer i's parameters: its dict when the layers are unstacked,
+    else views into the stacks."""
+    if isinstance(layers, list):
+        return layers[i]
     return {name: stack[i] for name, stack in layers.items()}
+
+
+def unstack_layers(params: Params) -> Params:
+    """``params`` with ``"layers"`` as a list of per-layer dicts of leaf
+    tensors (copies), one per layer; the other entries are shared. The
+    training step keeps this form (see the module docstring)."""
+    layers = params["layers"]
+    n = next(iter(layers.values())).shape[0]
+    unstacked: List[Params] = [{} for _ in range(n)]
+    for name, stack in layers.items():
+        for i in range(n):
+            unstacked[i][name] = stack[i].clone()
+    return {**params, "layers": unstacked}
+
+
+def stack_layers(params: Params) -> Params:
+    """The inverse of :func:`unstack_layers`: per-layer dicts back to
+    [n_layers, ...] stacks."""
+    layers = params["layers"]
+    stacked = {name: torch.stack([lp[name].detach() for lp in layers])
+               for name in layers[0]}
+    return {**params, "layers": stacked}
 
 
 def _attention(q, k, v, config: LlamaConfig):
@@ -256,17 +296,84 @@ def _embed(params: Params, tokens, config: LlamaConfig):
     return params["embedding"][tokens].to(config.dtype)
 
 
-@torch.no_grad()
-def llama_forward(params: Params, tokens, config: LlamaConfig):
-    """tokens: [B, S] int -> logits [B, S, vocab] (float32)."""
+def llama_forward(params: Params, tokens, config: LlamaConfig,
+                  return_aux: bool = False, return_hidden: bool = False):
+    """tokens: [B, S] int -> logits [B, S, vocab] (float32), differentiable.
+    With return_aux, also returns the summed MoE loss (0: dense FFNs
+    only). With return_hidden, returns the final-norm hidden states
+    INSTEAD of logits (chunked_cross_entropy applies lm_head chunk by
+    chunk). With ``config.remat`` and grad enabled, each block runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward."""
     c = config
     x = _embed(params, tokens, c)
     cos, sin = rope_frequencies(c.head_dim, tokens.shape[1], c.rope_theta,
                                 device=x.device)
+    block = (functools.partial(checkpoint, _block, use_reentrant=False)
+             if c.remat and torch.is_grad_enabled() else _block)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(c.n_layers):
-        x, _kv, _aux = _block(_layer(params["layers"], i), x, cos, sin, c)
+        x, _kv, aux = block(_layer(params["layers"], i), x, cos, sin, c)
+        aux_sum = aux_sum + aux
     x = rms_norm(x, params["final_norm"], c.norm_eps)
-    return (x @ params["lm_head"]).float()
+    if return_hidden:
+        return (x, aux_sum) if return_aux else x
+    logits = (x @ params["lm_head"]).float()
+    return (logits, aux_sum) if return_aux else logits
+
+
+def _ce_chunk(h, lm_head, t, m):
+    logits = (h @ lm_head).float()                       # [chunk, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, t[:, None])[:, 0]
+    return ((lse - tgt) * m).sum()
+
+
+def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
+                          chunk_tokens: int):
+    """Token-mean NLL without materializing [B, S, vocab] logits: the
+    output projection and log-softmax run per chunk of tokens under
+    ``torch.utils.checkpoint``, so the backward recomputes one chunk's
+    logits at a time (the reference's rematerialized scan). The tail is
+    padded with weight 0; the sum is divided by max(sum(mask), 1)."""
+    dim = hidden.shape[-1]
+    flat_h = hidden.reshape(-1, dim)
+    flat_t = targets.reshape(-1).long()
+    n = flat_h.shape[0]
+    flat_m = (torch.ones((n,), dtype=torch.float32, device=hidden.device)
+              if mask is None else mask.reshape(-1).float())
+    chunk = min(chunk_tokens, n)
+    pad = (-n) % chunk
+    if pad:
+        flat_h = F.pad(flat_h, (0, 0, 0, pad))
+        flat_t = F.pad(flat_t, (0, pad))
+        flat_m = F.pad(flat_m, (0, pad))  # padded tokens weigh 0
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, flat_h.shape[0], chunk):
+        args = (flat_h[lo:lo + chunk], lm_head, flat_t[lo:lo + chunk],
+                flat_m[lo:lo + chunk])
+        total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                         if remat else _ce_chunk(*args))
+    return total / torch.clamp(flat_m.sum(), min=1.0)
+
+
+def llama_loss(params: Params, tokens, targets, config: LlamaConfig,
+               mask=None):
+    """Next-token cross-entropy, f32 scalar. ``config.ce_chunk_tokens``
+    switches to the chunked loss that never materializes the
+    [B, S, vocab] logits; ``mask`` [B, S] weighs each token."""
+    if config.ce_chunk_tokens:
+        hidden = llama_forward(params, tokens, config, return_hidden=True)
+        return chunked_cross_entropy(hidden, params["lm_head"], targets,
+                                     mask,
+                                     chunk_tokens=config.ce_chunk_tokens)
+    logits = llama_forward(params, tokens, config)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The port's compute kernels with their plain PyTorch versions.
 
-flash-attention forward (K1), RMSNorm (K4) and the weight-only int8
-matmul (K5) are hand-written CUDA C++ for sm_90a (``csrc/``); rotary
-embeddings are plain PyTorch, as in the reference. Each wrapper runs
-the plain version on a CPU tensor and its kernel on a CUDA tensor.
+flash-attention forward (K1) and backward (K2 dQ, K3 dK/dV), RMSNorm
+(K4) and the weight-only int8 matmul (K5) are hand-written CUDA C++ for
+sm_90a (``csrc/``); rotary embeddings are plain PyTorch, as in the
+reference. Each wrapper runs the plain version on a CPU tensor and its
+kernel on a CUDA tensor.
 """
 
 from ray_tpu_torch.ops.attention import flash_attention

@@ -41,6 +41,13 @@ _SIGNATURES: Dict[str, List] = {
     "rt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_int, _F, _P],
+    # q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, q / k / v /
+    # dout strides (b, s, h), causal, sm_scale, stream
+    "rt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 18
+                                 + [ctypes.c_int, _F, _P],
+    # as above with dk, dv in place of dq
+    "rt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 18
+                                  + [ctypes.c_int, _F, _P],
     # x, w8, scale, out, workspace, M, K, N, splits, k_per_split,
     # vec_ok, stream
     "rt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,21 +1,28 @@
-"""Causal flash attention, forward (port of ray_tpu/ops/attention.py).
+"""Causal flash attention, forward and backward (port of
+ray_tpu/ops/attention.py).
 
-On a CPU tensor :func:`flash_attention` runs the plain PyTorch version
-(:func:`_attention_reference`); on a CUDA tensor it launches the
-hand-written kernel K1 (``csrc/attention.cu``) or raises. The kernel
-replaces the Pallas ``_fwd_kernel``: online softmax over K/V tiles in
-f32, bf16 P before P.V, and it also returns the row logsumexp that the
-backward kernels of the training slice will read.
+On a CPU tensor :func:`flash_attention` runs the plain PyTorch versions;
+on a CUDA tensor it launches the hand-written kernels or raises: K1
+(``csrc/attention.cu``) for the forward, which replaces the Pallas
+``_fwd_kernel`` (online softmax over K/V tiles in f32, bf16 P before
+P.V) and also returns the row logsumexp; K2 (dQ) and K3 (dK/dV,
+``csrc/attention_bwd.cu``) for the backward, which replace
+``_dq_kernel`` and ``_dkv_kernel`` and rebuild P from that logsumexp.
+When grad is needed, :func:`flash_attention` goes through
+:class:`_FlashAttention`, which saves (q, k, v, o, lse) as the
+reference's ``custom_vjp`` does; under ``no_grad`` it runs the forward
+alone.
 
 Layout: [batch, seq, heads, head_dim], as in the reference. Unlike the
 reference, K/V may carry fewer heads than Q (GQA): head h reads KV head
 h // (H // KVH), which is what the reference's ``jnp.repeat`` of K/V
-computes, without the copy.
+computes, without the copy; dK/dV come back with the KV heads, summed
+over each group (the VJP of ``jnp.repeat``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,20 +38,108 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return k.repeat_interleave(n_rep, dim=2) if n_rep > 1 else k
 
 
+def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """[Sq, Sk] bool: key j is live for query i iff j <= i + (Sk - Sq)."""
+    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril(sk - sq)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scaled scores [B, H, Sq, Sk] in f32, K's heads repeated."""
+    k = _repeat_kv(k, q.shape[2])
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / (q.shape[-1] ** 0.5)
+
+
 def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
-    k = _repeat_kv(k, q.shape[2])
-    v = _repeat_kv(v, q.shape[2])
-    d = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (d ** 0.5)
+    s = _scores(q, k)
     if causal:
-        sq, sk = q.shape[1], k.shape[1]
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=q.device).tril(sk - sq)
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    v = _repeat_kv(v, q.shape[2])
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
+
+def _flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: (o [B, Sq, H, D], lse [B, H, Sq] f32). A row
+    with no key at all keeps K1's l == 0 guard: lse = NEG_INF."""
+    s = _scores(q, k)
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    lse = torch.logsumexp(s, dim=-1)
+    lse = torch.where(torch.isneginf(lse), torch.full_like(lse, NEG_INF),
+                      lse)
+    return _attention_reference(q, k, v, causal), lse
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in f32 -> [B, H, Sq], as the reference computes it
+    before its backward kernels."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    """P = exp(S * scale - lse) [B, H, Sq, Sk] f32, exactly 0 where the
+    key is masked (so a row with no live key contributes nothing)."""
+    p = torch.exp(_scores(q, k) - lse[..., None])
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        p = torch.where(mask[None, None], p, torch.zeros_like(p))
+    return p
+
+
+def _ds(p: torch.Tensor, do: torch.Tensor, v: torch.Tensor,
+        delta: torch.Tensor, scale: float) -> torch.Tensor:
+    """dS = P * (dO V^T - delta) * scale, f32 [B, H, Sq, Sk]."""
+    v = _repeat_kv(v, do.shape[2])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p * (dp - delta[..., None]) * scale
+
+
+def _bwd_dq_reference(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
+    """Plain version of K2: dQ = dS K, dS rounded to K's dtype as the
+    product's operand (as the reference kernel does)."""
+    p = _probs(q, k, lse, causal)
+    ds = _ds(p, do, v, delta, q.shape[-1] ** -0.5)
+    kr = _repeat_kv(k, q.shape[2])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kr.float())
+    return dq.to(q.dtype)
+
+
+def _bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: dV = P^T dO and dK = dS^T Q per query head,
+    P and dS rounded to the operands' dtype, then summed over each GQA
+    group of query heads (the VJP of repeating K/V)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    p = _probs(q, k, lse, causal)
+    ds = _ds(p, do, v, delta, d ** -0.5)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dk = dk.reshape(b, sk, kvh, h // kvh, d).sum(3)
+    dv = dv.reshape(b, sk, kvh, h // kvh, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_backward_reference(q, k, v, o, lse, do, causal: bool):
+    """Plain version of K2 + K3, with the signature of
+    :func:`_flash_backward`: q [B, Sq, H, D], k/v [B, Sk, KVH, D], o and
+    do like q, lse [B, H, Sq] f32 -> (dq, dk, dv)."""
+    delta = _delta(o, do)
+    dq = _bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dk, dv = _bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (CUDA tensors only)
+# ---------------------------------------------------------------------------
 
 def _check_operand(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
@@ -57,10 +152,9 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
                          "of 8 and a 16-byte aligned base")
 
 
-def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K1: q [B, Sq, H, D], k/v [B, Sk, KVH, D] bf16 on the card
-    -> (o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)."""
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, do: Optional[torch.Tensor] = None):
+    """Validate what the kernels take; return (B, Sq, H, D, Sk, KVH)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape:
@@ -73,10 +167,30 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"128, not {d}")
     if causal and sk < sq:
         raise ValueError("causal flash_attention needs Sk >= Sq")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must share one device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    named = [("q", q), ("k", k), ("v", v)]
+    if do is not None:
+        if do.shape != q.shape:
+            raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
+        named.append(("do", do))
+    if any(t.device != q.device for _, t in named):
+        raise ValueError("q, k, v (and do) must share one device")
+    for name, t in named:
         _check_operand(name, t)
+    return b, sq, h, d, sk, kvh
+
+
+def _check_rows(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name} must be contiguous f32 {shape} on "
+                         f"{device}; got {t.dtype} {tuple(t.shape)}")
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K1: q [B, Sq, H, D], k/v [B, Sk, KVH, D] bf16 on the card
+    -> (o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)."""
+    b, sq, h, d, sk, kvh = _check_qkv(q, k, v, causal)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.lib()
@@ -90,13 +204,96 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def _bwd_args(q, k, v, do, lse, delta, causal):
+    b, sq, h, d, sk, kvh = _check_qkv(q, k, v, causal, do)
+    _check_rows("lse", lse, (b, h, sq), q.device)
+    _check_rows("delta", delta, (b, h, sq), q.device)
+    return (b, h, kvh, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], int(causal),
+            float(d ** -0.5), _build.stream_ptr(q.device))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                           causal: bool) -> torch.Tensor:
+    """dq [B, Sq, H, D] from q, do [B, Sq, H, D], k/v [B, Sk, KVH, D]
+    and lse, delta [B, H, Sq] f32: the plain version on a CPU tensor,
+    kernel K2 on a CUDA tensor (bf16, strided)."""
+    if q.device.type == "cpu":
+        return _bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    args = _bwd_args(q, k, v, do, lse, delta, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = _build.lib().rt_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args)
+    _build.check(rc, "rt_flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B, Sk, KVH, D], each summed over the query heads of its
+    GQA group; inputs as for :func:`flash_attention_bwd_dq`. The plain
+    version on a CPU tensor, kernel K3 on a CUDA tensor."""
+    if q.device.type == "cpu":
+        return _bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    args = _bwd_args(q, k, v, do, lse, delta, causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rc = _build.lib().rt_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *args)
+    _build.check(rc, "rt_flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _flash_backward(q, k, v, o, lse, do, causal: bool):
+    """(dq, dk, dv) of attention from the forward's o and lse: K2 then
+    K3 (their plain versions on a CPU tensor)."""
+    delta = _delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: K1 forward and K2/K3 backward
+    on the card, the plain versions of both on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            o, lse = _flash_forward_reference(q, k, v, causal)
+        else:
+            o, lse = _flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd may hand over an expanded grad (stride 0, from a sum),
+        # which the kernels' strided reads do not take
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do.contiguous(),
+                                     ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Fused causal attention: q [B, Sq, H, D], k/v [B, Sk, KVH, D]
     -> [B, Sq, H, D]."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
     if q.device.type == "cpu":
         return _attention_reference(q, k, v, causal)
     return _flash_forward(q, k, v, causal)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

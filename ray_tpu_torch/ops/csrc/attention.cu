@@ -31,18 +31,8 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
-                                                  const __nv_bfloat16* p) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
+using rt::ld32;
+using rt::ldmatrix_x2_trans;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

@@ -38,6 +38,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two neighbouring bf16 (4-byte aligned) as one register.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The B fragment of m16n8k16 from a row-major [k][n] tile in shared
+// memory (rows 16-byte aligned), transposed on the way: lane l passes
+// the address of row (l & 15) of the 16 x 8 block.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
+                                                  const __nv_bfloat16* p) {
+  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
 // Two int8 values converted to bf16 (exact: |v| <= 127) and packed.
 __device__ __forceinline__ uint32_t pack_i8_bf16(int8_t lo, int8_t hi) {
   return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));

@@ -69,6 +69,10 @@ def int8_matmul(x: torch.Tensor, w8: torch.Tensor,
                          "(quantize per output channel, axis=0)")
     if x.device.type == "cpu":
         return _int8_matmul_reference(x, w8, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        raise RuntimeError("int8_matmul kernel has no backward (nor has "
+                           "the reference's Pallas kernel); call it under "
+                           "torch.no_grad()")
     if x.dtype != torch.bfloat16 or w8.dtype != torch.int8 \
             or scale.dtype != torch.float32:
         raise TypeError("int8_matmul kernel takes x bf16, w8 int8, scale "

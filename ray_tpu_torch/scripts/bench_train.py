@@ -1,0 +1,126 @@
+"""Training throughput of the port: the counterpart of ``bench.py``'s
+``_bench_config`` (next-token loss, its backward, one AdamW step).
+
+    python -m ray_tpu_torch.scripts.bench_train
+
+Llama-3-8B at full width and depth (``LlamaConfig.llama3_8b``), remat
+and CE chunk 1024, random weights from seed 0, batch 1 x 2048 (what one
+80 GB card holds), one warm-up step and three timed steps on one fixed
+batch, each run ended by ``loss.item()``. Prints one JSON line with
+bench.py's keys: tokens/s, MFU against the H100's 989 TFLOP/s bf16 dense
+peak (6 x params per token, as bench.py counts it), the final loss and
+the device. Runs on the card; ``device="cpu"`` (tests) runs the plain
+versions and reports no MFU.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models.llama import (
+    LlamaConfig, Params, llama_init, llama_loss, unstack_layers)
+
+H100_BF16_DENSE_FLOPS = 989e12
+BATCH, SEQ, STEPS, CE_CHUNK = 1, 2048, 3, 1024
+
+
+def parameters(params: Params):
+    """Every tensor of a parameter tree, in a fixed order."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    items = params.values() if isinstance(params, dict) else params
+    return [t for item in items for t in parameters(item)]
+
+
+def make_train_step(cfg: LlamaConfig, params: Params, lr: float = 3e-4,
+                    weight_decay: float = 0.01):
+    """``step(tokens, targets) -> loss`` that updates ``params`` in
+    place: ``llama_loss``, its backward, then AdamW (betas 0.9/0.999,
+    eps 1e-8) over one parameter group, since ``optax.adamw`` decays
+    every leaf. Keep the layers unstacked (``unstack_layers``). On the
+    card the update is the fused AdamW: the ``foreach`` one would
+    allocate temporaries the size of all parameters. The moments take
+    the parameters' dtype."""
+    leaves = parameters(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    on_card = leaves[0].device.type == "cuda"
+    opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay,
+                            fused=True if on_card else None)
+
+    def step(tokens, targets) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = llama_loss(params, tokens, targets, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def setup(cfg: LlamaConfig, batch: int, seq: int, device: DeviceLike = None):
+    """The bench's state -> ``(params, step, tokens, targets)``: weights
+    from seed 0 with the layers unstacked, the AdamW step over them, and
+    one fixed batch of tokens and targets from seed 1."""
+    dev = resolve_device(device)
+    params = unstack_layers(llama_init(0, cfg, dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                            device=dev)
+    return params, make_train_step(cfg, params), tokens, targets
+
+
+def timed_steps(step, tokens, targets, steps: int):
+    """``steps`` steps back to back, ended by ``loss.item()`` -> (host
+    ms per step, final loss)."""
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(tokens, targets)
+    final_loss = loss.item()
+    return (time.perf_counter() - t0) / steps * 1e3, final_loss
+
+
+def bench_config(cfg: LlamaConfig, batch: int, seq: int, steps: int,
+                 device: DeviceLike = None) -> dict:
+    """One measured configuration -> bench.py's metrics dict."""
+    dev = resolve_device(device)
+    _params, step, tokens, targets = setup(cfg, batch, seq, dev)
+    step(tokens, targets).item()  # warm-up: allocator, cuBLAS, kernel build
+    step_ms, final_loss = timed_steps(step, tokens, targets, steps)
+
+    tokens_per_sec = batch * seq / (step_ms / 1e3)
+    on_card = dev.type == "cuda"
+    return {
+        "metric": "llama_train_tokens_per_sec_per_chip",
+        "value": tokens_per_sec,
+        "unit": "tokens/s/chip",
+        "mfu": (tokens_per_sec * cfg.flops_per_token()
+                / H100_BF16_DENSE_FLOPS) if on_card else None,
+        "model_params": cfg.num_params(),
+        "n_layers": cfg.n_layers,
+        "batch": batch, "seq": seq,
+        "ce_chunk_tokens": cfg.ce_chunk_tokens,
+        "step_ms": step_ms,
+        "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if on_card else None),
+        "final_loss": final_loss,
+    }
+
+
+def main() -> int:
+    cfg = LlamaConfig.llama3_8b(ce_chunk_tokens=CE_CHUNK)
+    print(json.dumps(bench_config(cfg, BATCH, SEQ, STEPS)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

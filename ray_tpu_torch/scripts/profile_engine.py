@@ -22,14 +22,19 @@ STEPS = 10        # decode steps per window
 TOP_KERNELS = 12  # kernels listed per window
 
 
-def _kernel_table(prof, steps: int, top: int):
+def _device_rows(prof):
+    """(device us, name, count) of every kernel in the window. GPU user
+    annotations (``Optimizer.step#...``) are ranges over kernels, not
+    kernels, and would count their time twice."""
     import torch
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        rows.append((evt.self_device_time_total, evt.key, evt.count))
-    rows.sort(reverse=True)
+    return [(evt.self_device_time_total, evt.key, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)]
+
+
+def _kernel_table(prof, steps: int, top: int):
+    rows = sorted(_device_rows(prof), reverse=True)
     busy_us = sum(r[0] for r in rows)
     launches = sum(r[2] for r in rows)
     table = [{"kernel": name[:80], "ms_per_step": t / steps / 1e3,
@@ -85,7 +90,8 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0), "batch": 4,
         "step_ms": step_ms, "step_ms_profiled": profiled_ms,
         "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / profiled_ms),
+        # unclipped: below 0 means the kernel sum counts something twice
+        "device_idle_share": 1.0 - busy_ms / profiled_ms,
         "launches_per_step": launches, "top_kernels": table}), flush=True)
     return 0
 

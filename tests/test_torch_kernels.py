@@ -2,14 +2,17 @@
 
 The tests marked ``cuda`` launch each kernel on the card at small and
 ragged shapes and hold it against its plain PyTorch version, as
-chip_smoke.py does at the serving path's shapes; without a GPU they
-skip. This file imports no JAX, so it also runs on a machine without
+chip_smoke.py does at the serving and training paths' shapes; without a
+GPU they skip. This file imports no JAX, so it also runs on a machine without
 it: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.ops import attention as tatt
 from ray_tpu_torch.ops import quant_matmul as tqm
 from ray_tpu_torch.ops import rmsnorm as trms
@@ -124,3 +127,121 @@ def test_int8_kernel_matches_plain_on_card(cuda_device, m, k, n):
     rel = ((got.float() - ref.float()).abs().max()
            / ref.float().abs().max()).item()
     assert rel < 2e-2
+
+
+def _rel_l2(got, ref, dim=None):
+    """Relative L2 error, the reference's norm floored at an RMS of 1e-4
+    per element: some rows are exactly 0 (dq of a query that sees one
+    key), where the kernel's f32 rounding noise has no scale to be
+    relative to."""
+    diff = got.float() - ref.float()
+    n = diff.numel() if dim is None else diff[0, 0].numel()
+    floor = 1e-4 * n ** 0.5
+    return (torch.linalg.vector_norm(diff, dim=dim)
+            / torch.linalg.vector_norm(ref.float(), dim=dim).clamp_min(floor))
+
+
+def _check_bwd(q, k, v, do, causal):
+    o, lse = tatt._flash_forward(q, k, v, causal)
+    delta = tatt._delta(o, do)
+    dq = tatt.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = tatt.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    rq = tatt._bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    rk, rv = tatt._bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        # P and dS rounded to bf16 as operands on both sides; the sums'
+        # order and the bf16 outputs differ: about one bf16 step
+        assert _rel_l2(got, ref).item() <= 2e-2
+        # per row (query row of dq, key row of dk/dv), where a row with
+        # few live pairs would hide in the whole tensor
+        assert _rel_l2(got, ref, dim=(2, 3)).max().item() <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,h,kvh,causal", [
+    (1, 1, 128, 4, 4, True), (63, 63, 128, 8, 2, True),
+    (200, 200, 128, 8, 2, True), (5, 77, 128, 4, 1, True),  # Sq < Sk
+    (70, 70, 64, 4, 2, True), (33, 90, 64, 4, 4, False),
+    (200, 130, 128, 8, 2, False), (128, 128, 64, 2, 1, True)])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, sq, sk, d,
+                                                     h, kvh, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rand(s, heads):
+        return torch.randn((2, s, heads, d), generator=g,
+                           device=cuda_device).bfloat16()
+
+    _check_bwd(rand(sq, h), rand(sk, kvh), rand(sk, kvh), rand(sq, h),
+               causal)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_read_strided_inputs(cuda_device):
+    """q/k/v as views of one fused projection, dO as a transposed view."""
+    qkv = torch.randn((1, 90, 4 + 2 + 2, 128), device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    do = torch.randn((1, 4, 90, 128), device=cuda_device).bfloat16() \
+        .transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    _check_bwd(q, k, v, do, True)
+
+
+@pytest.mark.cuda
+def test_flash_backward_row_without_keys_is_zero_on_card(cuda_device):
+    q = torch.randn((1, 5, 2, 64), device=cuda_device).bfloat16()
+    k = torch.zeros((1, 0, 2, 64), device=cuda_device).bfloat16()
+    q.requires_grad_()
+    out = tatt.flash_attention(q, k, k.clone().requires_grad_(), False)
+    out.backward(torch.randn_like(out))
+    assert torch.equal(out.detach(), torch.zeros_like(out))
+    assert torch.equal(q.grad, torch.zeros_like(q))
+
+
+@pytest.mark.cuda
+def test_training_grads_reach_every_parameter_on_card(cuda_device):
+    """The graph survives the kernels: a 1-layer model's loss backward
+    leaves a finite grad on every parameter, through K1/K2/K3 and K4."""
+    cfg = dataclasses.replace(
+        tl.LlamaConfig.tiny(dtype=torch.bfloat16, attention="flash",
+                            remat=True, ce_chunk_tokens=16),
+        dim=256, n_heads=2, n_kv_heads=1, n_layers=1)
+    params = tl.unstack_layers(tl.llama_init(0, cfg, device=cuda_device))
+    leaves = [params["embedding"], params["final_norm"], params["lm_head"],
+              *params["layers"][0].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    counts = (tatt.flash_attention.launches,
+              tatt.flash_attention_bwd_dq.launches,
+              tatt.flash_attention_bwd_dkv.launches, trms.rms_norm.launches)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
+    loss = tl.llama_loss(params, toks, toks, cfg)
+    loss.backward()
+    assert torch.isfinite(loss)
+    for t in leaves:
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    after = (tatt.flash_attention.launches,
+             tatt.flash_attention_bwd_dq.launches,
+             tatt.flash_attention_bwd_dkv.launches, trms.rms_norm.launches)
+    # remat: K1 in the forward and again in the recompute; K4 2L+1 and 2L
+    assert [a - b for a, b in zip(after, counts)] == [2, 1, 1, 5]
+
+
+@pytest.mark.cuda
+def test_training_wrappers_refuse_what_they_cannot_run(cuda_device):
+    q = torch.randn((1, 8, 2, 96), device=cuda_device).bfloat16()
+    q.requires_grad_()
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_attention(q, q, q)
+    q32 = torch.randn((1, 8, 2, 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(TypeError):
+        tatt.flash_attention(q32, q32, q32)
+    lse = torch.zeros((1, 2, 8), device=cuda_device)
+    qb = q32.detach().bfloat16()
+    with pytest.raises(ValueError, match="lse"):
+        tatt.flash_attention_bwd_dq(qb, qb, qb, qb, lse.double(), lse, True)
+    w8, s = tqm.quantize_int8(torch.randn((64, 32), device=cuda_device))
+    x = torch.randn((2, 64), device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError, match="backward"):
+        tqm.int8_matmul(x.requires_grad_(), w8, s)

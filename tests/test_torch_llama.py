@@ -17,6 +17,7 @@ import torch
 from ray_tpu.models import llama as jl
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import llama as tl
+from ray_tpu_torch.scripts.bench_train import parameters
 
 CONFIGS = {
     "gqa": dict(),                # tiny: 4 query heads over 2 KV heads
@@ -176,3 +177,89 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         tl.llama_init(0, tl.LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.llama_init_cache(tl.LlamaConfig.tiny(), 1, 8)
+
+
+# --- training: loss and grads ----------------------------------------------
+
+def _grads_like_jax(tp_unstacked):
+    """Grads of the unstacked port tree, stacked back into the JAX tree's
+    layout as numpy."""
+    layers = tp_unstacked["layers"]
+    return {
+        "embedding": tp_unstacked["embedding"].grad.numpy(),
+        "final_norm": tp_unstacked["final_norm"].grad.numpy(),
+        "lm_head": tp_unstacked["lm_head"].grad.numpy(),
+        "layers": {name: torch.stack([lp[name].grad for lp in layers]).numpy()
+                   for name in layers[0]},
+    }
+
+
+@pytest.mark.parametrize("name,chunk,masked,remat", [
+    ("gqa", 0, False, False),
+    ("flash", 0, False, False),
+    ("gqa", 0, True, False),
+    ("gqa", 5, False, False),     # 24 tokens: 5 does not divide them
+    ("flash", 5, True, False),
+    ("flash", 0, False, True),
+    ("gqa", 7, True, True),
+])
+def test_llama_loss_and_grads_match_jax(name, chunk, masked, remat):
+    kw = dict(CONFIGS[name], ce_chunk_tokens=chunk, remat=remat)
+    jcfg, tcfg = jl.LlamaConfig.tiny(**kw), tl.LlamaConfig.tiny(**kw)
+    jp, tp = _params(jcfg)
+    toks = _tokens(batch=2)
+    tgts = _tokens(batch=2, seed=1)
+    mask = (np.random.default_rng(2).random((2, 12)) < 0.7).astype(
+        np.float32) if masked else None
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jl.llama_loss(p, jnp.asarray(toks), jnp.asarray(tgts),
+                                jcfg, mask=None if mask is None
+                                else jnp.asarray(mask)))(jp)
+
+    tp = tl.unstack_layers(tp)
+    for t in parameters(tp):
+        t.requires_grad_(True)
+    loss = tl.llama_loss(tp, torch.from_numpy(toks).long(),
+                         torch.from_numpy(tgts).long(), tcfg,
+                         mask=None if mask is None
+                         else torch.from_numpy(mask))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5)
+    got = _grads_like_jax(tp)
+    for path, want in jax.tree_util.tree_leaves_with_path(jgrads):
+        node = got
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_allclose(node, np.asarray(want), rtol=1e-4,
+                                   atol=1e-5, err_msg=str(path))
+
+
+def test_unstack_then_stack_gives_back_the_tree():
+    _, tp = _params(jl.LlamaConfig.tiny())
+    un = tl.unstack_layers(tp)
+    assert isinstance(un["layers"], list) and len(un["layers"]) == 2
+    assert un["layers"][1]["wq"].is_contiguous()
+    assert un["layers"][1]["wq"].data_ptr() != tp["layers"]["wq"].data_ptr()
+    back = tl.stack_layers(un)
+    assert back["layers"].keys() == tp["layers"].keys()
+    for key, stack in tp["layers"].items():
+        assert torch.equal(back["layers"][key], stack)
+    for key in ("embedding", "final_norm", "lm_head"):
+        assert back[key] is tp[key]
+    # and both forms give the same forward
+    toks = torch.from_numpy(_tokens()).long()
+    cfg = tl.LlamaConfig.tiny()
+    np.testing.assert_array_equal(tl.llama_forward(un, toks, cfg).numpy(),
+                                  tl.llama_forward(tp, toks, cfg).numpy())
+
+
+def test_forward_keeps_no_graph_under_no_grad_and_hidden_matches():
+    jcfg, tcfg = _configs("gqa")
+    jp, tp = _params(jcfg)
+    toks = _tokens(batch=2)
+    want = np.asarray(jl.llama_forward(jp, jnp.asarray(toks), jcfg,
+                                       return_hidden=True))
+    got, aux = tl.llama_forward(tp, torch.from_numpy(toks).long(), tcfg,
+                                return_aux=True, return_hidden=True)
+    assert got.grad_fn is None and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)

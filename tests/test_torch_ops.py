@@ -7,6 +7,7 @@ tests do. Tests marked ``cuda`` hold each hand-written kernel against
 its plain version on the card, and skip without one.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,16 +58,19 @@ def test_rms_norm_bf16_matches_jax():
 
 
 def test_wrappers_take_the_plain_path_on_cpu():
-    trms.rms_norm.launches = tatt.flash_attention.launches = 0
-    tqm.int8_matmul.launches = 0
-    x = torch.randn(4, 64)
-    trms.rms_norm(x, torch.ones(64))
-    q = torch.randn(1, 8, 2, 16)
-    tatt.flash_attention(q, q, q)
+    counted = (trms.rms_norm, tatt.flash_attention,
+               tatt.flash_attention_bwd_dq, tatt.flash_attention_bwd_dkv,
+               tqm.int8_matmul)
+    for fn in counted:
+        fn.launches = 0
+    x = torch.randn(4, 64, requires_grad=True)
+    trms.rms_norm(x, torch.ones(64)).sum().backward()
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    tatt.flash_attention(q, q, q).sum().backward()
     w8, s = tqm.quantize_int8(torch.randn(64, 32))
     tqm.int8_matmul(x, w8, s)
-    assert (trms.rms_norm.launches, tatt.flash_attention.launches,
-            tqm.int8_matmul.launches) == (0, 0, 0)
+    assert [fn.launches for fn in counted] == [0] * 5
+    assert q.grad is not None and x.grad is not None
 
 
 # --- RoPE ------------------------------------------------------------------
@@ -208,3 +212,144 @@ def test_int8_matmul_rejects_mismatched_scale():
     w8, s = tqm.quantize_int8(torch.randn(64, 32))
     with pytest.raises(ValueError, match="scale"):
         tqm.int8_matmul(torch.randn(2, 64), w8, s[:16])
+
+
+# --- flash attention backward ----------------------------------------------
+
+def _qkv_do(sq, sk, h=2, kvh=2, d=128, seed=0):
+    rng = _rng(seed)
+    return (rng.standard_normal((1, sq, h, d)).astype(np.float32),
+            rng.standard_normal((1, sk, kvh, d)).astype(np.float32),
+            rng.standard_normal((1, sk, kvh, d)).astype(np.float32),
+            rng.standard_normal((1, sq, h, d)).astype(np.float32))
+
+
+def _jax_interpret(fn):
+    prev = jatt._INTERPRET
+    jatt._INTERPRET = True
+    try:
+        return fn()
+    finally:
+        jatt._INTERPRET = prev
+
+
+@pytest.mark.parametrize("sq,sk", [(256, 256), (256, 512)])
+def test_flash_backward_reference_matches_jax_kernels(sq, sk):
+    """The plain version of K2 + K3 against the Pallas _dq_kernel and
+    _dkv_kernel, fed the same o and lse."""
+    q, k, v, do = _qkv_do(sq, sk)
+
+    def run():
+        jq, jk, jv, jdo = (jnp.asarray(a).transpose(0, 2, 1, 3)
+                           for a in (q, k, v, do))
+        plan = jatt._kernel_plan(jnp.asarray(q), jnp.asarray(k))
+        assert plan is not None  # the Pallas kernels
+        o, lse = jatt._flash_forward(jq, jk, jv, True, *plan)
+        grads = jatt._flash_backward(jq, jk, jv, o, lse, jdo, True, *plan)
+        return o, lse, grads
+
+    o, lse, (jdq, jdk, jdv) = _jax_interpret(run)
+    o_t = torch.from_numpy(np.array(o)).transpose(1, 2)
+    lse_t = torch.from_numpy(np.array(lse)[..., 0])
+    dq, dk, dv = tatt._flash_backward_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), o_t, lse_t,
+        torch.from_numpy(do), True)
+    # f32 inputs: P and dS are not rounded on either side; the reference's
+    # own bar for its kernels against autodiff
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(want).transpose(0, 2, 1, 3), atol=5e-3)
+
+
+@pytest.mark.parametrize("sq,sk", [(256, 256), (256, 512)])
+def test_flash_attention_grads_match_jax_kernel(sq, sk):
+    """Grads through _FlashAttention against jax.vjp of the JAX
+    flash_attention, whose custom_vjp runs the Pallas kernels."""
+    q, k, v, do = _qkv_do(sq, sk, seed=1)
+
+    def run():
+        args = tuple(jnp.asarray(a) for a in (q, k, v))
+        assert jatt._kernel_plan(args[0], args[1]) is not None
+        out, vjp = jax.vjp(lambda *a: jatt.flash_attention(*a, True), *args)
+        return out, vjp(jnp.asarray(do))
+
+    jout, jgrads = _jax_interpret(run)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tatt.flash_attention(tq, tk, tv, True)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=1e-2)
+    for got, want in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   atol=5e-3)
+
+
+def test_flash_attention_gqa_grads_match_jax_repeat():
+    """dK/dV come back with the KV heads: the VJP of jnp.repeat sums the
+    grads of each group's query heads."""
+    q, k, v, do = _qkv_do(12, 12, h=4, kvh=2, d=16, seed=3)
+
+    def ref(q_, k_, v_):
+        return jatt._attention_reference(q_, jnp.repeat(k_, 2, axis=2),
+                                         jnp.repeat(v_, 2, axis=2), True)
+
+    _, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tatt.flash_attention(tq, tk, tv, True).backward(torch.from_numpy(do))
+    assert tk.grad.shape == (1, 12, 2, 16)
+    for got, want in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   atol=1e-5)
+
+
+def test_flash_attention_row_without_keys_has_zero_grads():
+    """No live key: output 0, lse at K1's l == 0 guard, and the
+    backward gives exactly 0 (P is masked to 0, not exp(0))."""
+    q, _, _, do = _qkv_do(5, 0, d=16, seed=4)
+    tq = torch.from_numpy(q).requires_grad_()
+    tk = torch.zeros((1, 0, 2, 16), requires_grad=True)
+    tv = torch.zeros((1, 0, 2, 16), requires_grad=True)
+    out = tatt.flash_attention(tq, tk, tv, False)
+    _, lse = tatt._flash_forward_reference(tq, tk, tv, False)
+    assert torch.all(lse == tatt.NEG_INF)
+    out.backward(torch.from_numpy(do))
+    assert torch.equal(out.detach(), torch.zeros_like(out))
+    assert torch.equal(tq.grad, torch.zeros_like(tq))
+    assert tk.grad.shape == (1, 0, 2, 16)
+
+
+def test_flash_backward_masked_pairs_add_nothing():
+    """A causal pair above the diagonal gets P = 0 whatever its score, so
+    perturbing a key changes no grad of the queries that cannot see it."""
+    q, k, v, do = _qkv_do(6, 6, d=16, seed=5)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    o, lse = tatt._flash_forward_reference(t[0], t[1], t[2], True)
+    dq, _, _ = tatt._flash_backward_reference(t[0], t[1], t[2], o, lse,
+                                              t[3], True)
+    k2 = t[1].clone()
+    k2[:, -1] += 100.0  # only the last query row sees the last key
+    o2, lse2 = tatt._flash_forward_reference(t[0], k2, t[2], True)
+    dq2, _, _ = tatt._flash_backward_reference(t[0], k2, t[2], o2, lse2,
+                                               t[3], True)
+    assert torch.isfinite(dq2).all()
+    assert torch.equal(dq[:, :-1], dq2[:, :-1])
+
+
+# --- RMSNorm backward ------------------------------------------------------
+
+def test_rms_norm_grads_match_jax_vjp():
+    x = _rng(6).standard_normal((3, 5, 64)).astype(np.float32)
+    w = (1 + 0.1 * _rng(7).standard_normal(64)).astype(np.float32)
+    g = _rng(8).standard_normal((3, 5, 64)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, w_: j_rms_norm(x_, w_, 1e-5),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    out = trms.rms_norm(tx, tw, 1e-5)
+    assert type(out.grad_fn).__name__ == "_RMSNormBackward"
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), atol=1e-5)
