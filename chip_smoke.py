@@ -17,7 +17,8 @@ plain f32 version on the CPU, (7) training Llama-3-8B at full width and
 depth (loss, backward, fused AdamW; remat and chunked cross-entropy) for
 a warm-up and three timed steps on one fixed batch, (8) a 2-layer
 full-width loss and its grads on the card against the plain f32
-version on the CPU, (9) the kernel list. Every kernel's launch count is
+version on the CPU, (9) the kernel list. The backward is also timed whole, as the model
+calls it (delta, K2, K3 and K3's group sum), against SDPA's backward. Every kernel's launch count is
 zeroed just before each engine phase and each training step and read
 just after; a kernel of the path that never launched fails the run, and
 a training step must launch exactly K1 2L, K2 L, K3 L, K4 4L + 1 and K5
@@ -239,7 +240,8 @@ def check_flash_backward(dev, gen):
     import torch
     from ray_tpu_torch.ops import attention as att
     b, h, kvh, d = 1, 32, 8, 128
-    rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
+            "backward": []}
     for s in (200, 512, 2048):
         q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
@@ -290,9 +292,45 @@ def check_flash_backward(dev, gen):
                 library_op=library_op if name.endswith("dq") else None,
                 bound_ms=bms, bound_by=by))
             emit("kernel_check", kernel=name, **rows[name][-1])
+        rows["backward"].append(check_whole_backward(
+            (q, k, v, o, lse, do), library, library_op,
+            in_bytes - 4 * b * h * s + 2 * b * s * h * d
+            + 2 * b * s * h * d + 2 * 2 * b * s * kvh * d,
+            14.0 * d * pairs * b * h))
         del got, want, q, k, v, do, o, lse, delta, args
         torch.cuda.empty_cache()
     return rows
+
+
+def check_whole_backward(args, library, library_op, nbytes, flops):
+    """The backward as the model calls it (``_flash_backward``: delta,
+    K2, K3 and K3's group sum) against its plain version and against
+    SDPA's backward, which computes its own delta; with ``_delta``'s own
+    time. ``nbytes``: q, k, v, o, do, lse in and dq, dk, dv out;
+    ``flops``: K2's and K3's products, 14 D per live pair and head."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+    got = att._flash_backward(*args, True)
+    want = att._flash_backward_reference(*args, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for tname, g_t, w_t in zip(("dq", "dk", "dv"), got, want):
+        diff = g_t.float() - w_t.float()
+        errs[tname] = rel_l2(diff, w_t).item()
+        check(errs[tname] <= 2e-2, f"_flash_backward {tname}: relative L2 "
+              f"{errs[tname]} > 2e-2")
+    q, k, v, o, lse, do = args
+    bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    row = dict(shape=[q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                      q.shape[3]], rel_l2_err=errs,
+               ms=time_ms(att._flash_backward, *args, True),
+               delta_ms=time_ms(att._delta, o, do),
+               call_ms=call_ms(lambda: att._flash_backward(*args, True)),
+               library_ms=library, library_op=library_op,
+               bound_ms=bms, bound_by=by)
+    row["over_library"] = row["ms"] / library
+    emit("kernel_check", kernel="flash_backward", **row)
+    return row
 
 
 def check_rms_norm(dev, gen):
@@ -341,14 +379,38 @@ def check_int8_matmul(dev, gen):
         check(rel < 2e-2, f"K5 {m}x{k}x{n}: relative max err {rel} >= 2e-2")
         bms, by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 2,
                            2.0 * m * k * n, BF16_TENSOR_FLOPS)
+        library_ms, library_note = int8_library_ms(x, w8, scale, ref)
         rows.append(dict(
             shape=[m, k, n], max_abs_err=diff, rel_max_err=rel,
             ms=time_ms(qm.int8_matmul, x, w8, scale),
             call_ms=call_ms(lambda: qm.int8_matmul(x, w8, scale)),
             plain_ms=time_ms(qm._int8_matmul_reference, x, w8, scale),
-            library_ms=None, bound_ms=bms, bound_by=by))
+            library_ms=library_ms, library_note=library_note,
+            bound_ms=bms, bound_by=by))
         emit("kernel_check", kernel="int8_matmul", **rows[-1])
     return rows
+
+
+def int8_library_ms(x, w8, scale, ref):
+    """Time of ``torch._weight_int8pack_mm`` (x @ (w8 [N, K] int8 * scale
+    [N]), the same per-output-channel function) -> (ms, None), or (None,
+    why) when the card's PyTorch refuses it or computes something else."""
+    import torch
+    w_nk = w8.t().contiguous()
+    for sc in (scale, scale.to(x.dtype)):
+        try:
+            out = torch._weight_int8pack_mm(x, w_nk, sc)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            why = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+            continue
+        rel = ((out.float() - ref.float()).abs().max()
+               / (ref.float().abs().max() + 1e-9)).item()
+        if rel >= 2e-2:
+            why = f"_weight_int8pack_mm differs from the reference: {rel}"
+            continue
+        return time_ms(torch._weight_int8pack_mm, x, w_nk, sc), None
+    return None, why
 
 
 # ---------------------------------------------------------------------------
@@ -686,6 +748,9 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"],
             shapes=checks[kname]))
+    # the whole backward as the model calls it, beside K2's row (whose
+    # library_ms is SDPA's whole backward)
+    kernels[1]["whole_backward"] = checks["backward"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

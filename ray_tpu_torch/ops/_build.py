@@ -45,8 +45,9 @@ _SIGNATURES: Dict[str, List] = {
     # dout strides (b, s, h), causal, sm_scale, stream
     "rt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 18
                                  + [ctypes.c_int, _F, _P],
-    # as above with dk, dv in place of dq
-    "rt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 18
+    # as above with dk, dv and the f32 scratch pk, pv (null when H ==
+    # KVH) in place of dq
+    "rt_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 18
                                   + [ctypes.c_int, _F, _P],
     # x, w8, scale, out, workspace, M, K, N, splits, k_per_split,
     # vec_ok, stream

@@ -22,6 +22,7 @@ over each group (the VJP of ``jnp.repeat``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -213,6 +214,52 @@ def _bwd_args(q, k, v, do, lse, delta, causal):
             float(d ** -0.5), _build.stream_ptr(q.device))
 
 
+# Tile sizes of csrc/attention_bwd.cu: K2 blocks own 128 query rows, K3
+# blocks 128 keys (two consumer warpgroups of 64 each).
+_DQ_ROWS = 128
+_DKV_KEYS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How K2 and K3 cover one backward call (csrc/attention_bwd.cu).
+
+    ``dq_order`` / ``dkv_order``: the query / key tile of each block in
+    launch order (the same for every head and batch), heaviest first
+    under the causal mask: K2's last query tiles and K3's first key
+    tiles see the most pairs. K3 runs one block per (key tile, query
+    head, batch); with more than one query head per KV head it writes f32
+    partials to ``scratch_shape`` (one buffer each for dK and dV) and a
+    second pass sums each group in a fixed head order."""
+    dq_blocks: int
+    dkv_blocks: int
+    dq_order: Tuple[int, ...]
+    dkv_order: Tuple[int, ...]
+    group: int
+    scratch_shape: Optional[Tuple[int, int, int, int]]
+
+    @property
+    def scratch_bytes(self) -> int:
+        if self.scratch_shape is None:
+            return 0
+        b, s, h, d = self.scratch_shape
+        return 2 * 4 * b * s * h * d
+
+
+def _bwd_plan(b: int, sq: int, sk: int, h: int, kvh: int, d: int,
+              causal: bool = True) -> BwdPlan:
+    """The launch plan of K2 and K3 for q [b, sq, h, d] and k/v
+    [b, sk, kvh, d]."""
+    n_q = -(-sq // _DQ_ROWS)
+    n_k = -(-sk // _DKV_KEYS)
+    group = h // kvh
+    return BwdPlan(
+        dq_blocks=n_q * h * b, dkv_blocks=n_k * h * b,
+        dq_order=tuple(range(n_q))[::-1] if causal else tuple(range(n_q)),
+        dkv_order=tuple(range(n_k)), group=group,
+        scratch_shape=(b, sk, h, d) if group > 1 else None)
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta,
                            causal: bool) -> torch.Tensor:
     """dq [B, Sq, H, D] from q, do [B, Sq, H, D], k/v [B, Sk, KVH, D]
@@ -234,24 +281,34 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, Sk, KVH, D], each summed over the query heads of its
     GQA group; inputs as for :func:`flash_attention_bwd_dq`. The plain
-    version on a CPU tensor, kernel K3 on a CUDA tensor."""
+    version on a CPU tensor, kernel K3 (and its group sum) on a CUDA
+    tensor."""
     if q.device.type == "cpu":
         return _bwd_dkv_reference(q, k, v, do, lse, delta, causal)
     args = _bwd_args(q, k, v, do, lse, delta, causal)
+    plan = _bwd_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                     k.shape[2], q.shape[3], causal)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    pk = pv = None
+    if plan.scratch_shape is not None:
+        pk = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                         device=q.device)
+        pv = torch.empty_like(pk)
     rc = _build.lib().rt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *args)
+        None if pk is None else pk.data_ptr(),
+        None if pv is None else pv.data_ptr(), *args)
     _build.check(rc, "rt_flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
 def _flash_backward(q, k, v, o, lse, do, causal: bool):
-    """(dq, dk, dv) of attention from the forward's o and lse: K2 then
-    K3 (their plain versions on a CPU tensor)."""
+    """(dq, dk, dv) of attention from the forward's o and lse: delta,
+    then K2, then K3 and its group sum (their plain versions on a CPU
+    tensor)."""
     delta = _delta(o, do)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)

@@ -1,6 +1,6 @@
-// K2 and K3: flash-attention backward (FlashAttention-2 style), from the
-// row logsumexp that K1 writes and delta = rowsum(dO * O) (f32, computed
-// by the wrapper, as the reference computes it outside its kernels).
+// K2 and K3: flash-attention backward for Hopper, from the row
+// logsumexp that K1 writes and delta = rowsum(dO * O) (f32, computed by
+// the wrapper, as the reference computes it outside its kernels).
 //
 // Replaces: ray_tpu/ops/attention.py, _dq_kernel (K2) and _dkv_kernel
 // (K3) under _flash_backward. Same arithmetic: scores in f32 from bf16
@@ -8,399 +8,660 @@
 // * scale; P and dS are f32 and rounded to bf16 only as operands of the
 // products that take them (P^T dO, dS K, dS^T Q); dQ, dK and dV sum in
 // f32 and are written once in bf16. A masked (query, key) pair gets
-// P = 0 exactly, not exp(-1e30 - lse), so a row with no live key (or a
-// padding row of a ragged tile) adds nothing anywhere and never NaN.
+// P = 0 exactly (a select, not exp(-1e30 - lse)), so a row with no live
+// key, or a padding row of a ragged tile that TMA filled with zeros,
+// adds nothing anywhere and never NaN. The grads are deterministic: no
+// float atomics anywhere, and dQ has a kernel of its own.
 //
 // Bound on the H100: at the training shapes (S 2048, D 128) each pair of
-// a query and a live key costs 6 D flops in K2 and 8 D in K3 against a
-// few bytes per row, so the tensor cores bound both. Design, as K1: four
-// warps of mma.sync m16n8k16 (bf16 in, f32 accumulate), 64-row tiles,
-// no pipeline (wgmma, TMA and a load/compute pipeline come later).
+// a query and a live key costs 6 D flops in K2 and 8 D in K3 (S and dP
+// are computed in both) against a few bytes per row, so the tensor
+// cores bound both.
 //
-// K2: one block per (64 query rows, head, batch); each warp owns 16
-// rows. Q and dO are staged once in shared memory, K/V tiles of 64 keys
-// up to the causal limit of the block. S = Q K^T and dP = dO V^T land in
-// the accumulator layout, which is the A layout of dS K, so dS never
-// leaves registers; K's B operand comes from ldmatrix.trans.
+// Design. Both kernels are warp-specialised: two consumer warpgroups
+// (setmaxnreg 240) each own 64 rows of the block's tile and run every
+// product with wgmma; one producer warp (setmaxnreg 24) keeps TMA loads
+// in flight through a ring of kStages stages of shared memory, with a
+// full and an empty mbarrier per stage. Tiles land 128-byte swizzled in
+// blocks of 64 columns, which is the layout the wgmma descriptors read,
+// both K-major (the reduced dim contiguous) and MN-major (transposed B).
+// Inputs are read in the model's [B, S, H, D] layout through 4-D tensor
+// maps over their strides; rows past S come back as zeros and are
+// masked. Blocks are launched heaviest first along the causal triangle.
 //
-// K3: one block per (64 keys, KV head, batch); each warp owns 16 keys,
-// whose dK/dV stay in registers while the block walks every query head
-// of its GQA group and, for each, the live query tiles of 32 rows (from
-// the first one that sees the block's first key). That sum over the
-// group is the VJP of the reference's jnp.repeat of K/V, without atomics,
-// so the result is deterministic. The block computes S^T = K Q^T and
-// dP^T = V dO^T with keys as rows: P^T and dS^T then sit in the A layout
-// of P^T dO and dS^T Q, and dO and Q reach them as B operands through
-// ldmatrix.trans, so nothing is transposed in memory.
+// K2 (dQ): one block per (128 query rows, head, batch), the last query
+// tiles (which see the most keys) first. Q and dO are loaded once; K/V
+// tiles of 64 keys stream through the ring. S = Q K^T and dP = dO V^T
+// take both operands from shared memory; dS stays in registers as the A
+// operand of dQ += dS K, with the K tile read MN-major.
 //
-// Inputs are read in the model's [B, S, H, D] layout through strides;
-// ragged Sq and Sk are masked in the kernels; causal offset Sk - Sq.
+// K3 (dK/dV): one block per (128 keys, query head, batch), the first key
+// tiles (which see the most queries) first: the GQA group is split
+// across blocks, H / KVH times as many blocks as KV heads. K/V are loaded
+// once; Q, dO, lse and delta tiles of 64 query rows stream through the
+// ring. S^T = K Q^T and dP^T = V dO^T come from shared memory; P^T and
+// dS^T stay in registers as the A operands of dV += P^T dO and dK += dS^T
+// Q, with dO and Q read MN-major. With one query head per KV head the
+// block writes bf16 dK/dV; otherwise it writes f32 partials per query
+// head to a scratch [B, Sk, H, D] and a second pass sums each group in
+// a fixed head order and writes bf16 (the VJP of jnp.repeat, with no
+// atomics). Two other deterministic sums measured slower on the H100: a
+// thread-block cluster per group summing through distributed shared
+// memory, and the group's last block (by an integer ticket) summing the
+// partials from L2, which is the kernel's tail when the grid is one wave.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBQ2 = 64;  // K2: query rows per block
-constexpr int kBK2 = 64;  // K2: keys per tile
-constexpr int kBK3 = 64;  // K3: keys per block
-constexpr int kBQ3 = 32;  // K3: query rows per tile
-
 using bf16 = __nv_bfloat16;
-using rt::ld32;
-using rt::ldmatrix_x2_trans;
 
-// Rows [r0, r0 + ROWS) of a [S, D] slab with row stride rs (elements)
-// into a shared tile with rows of D + 8; rows >= S are zero-filled so
-// that 0 * garbage cannot make NaN.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t rs, int64_t r0,
-                                          int64_t S) {
-  constexpr int LD = D + 8;
-  for (int c = threadIdx.x; c < ROWS * D / 8; c += kThreads) {
-    const int r = c / (D / 8);
-    const int cc = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + cc);
-    *reinterpret_cast<uint4*>(dst + r * LD + cc) = val;
-  }
+constexpr int kConsumerThreads = 256;  // two warpgroups
+constexpr int kThreads = 384;          // + the producer warpgroup
+constexpr int kStages = 3;
+constexpr int kQ2 = 128;  // K2: query rows per block
+constexpr int kK2 = 64;   // K2: keys per tile
+constexpr int kK3 = 128;  // K3: keys per block
+constexpr int kQ3 = 64;   // K3: query rows per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Bytes of a [rows, D] bf16 tile: D / 64 blocks of rows x 128 bytes.
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
 }
 
-// The A fragment (16 x 16) at rows row0.., columns col0.. of a shared
-// tile with rows of LD elements.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile,
-                                       int row0, int col0, int g, int t) {
-  const bf16* p = tile + (row0 + g) * LD + col0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
+// Loads rows [r0, r0 + ROWS) of head hh, batch b into a swizzled tile.
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int r0, int hh,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    rt::tma_load_4d(dst + c * ROWS * 128, map, bar, c * 64, r0, hh, b);
 }
 
-// The B fragment (16 x 8) of X^T for X a row-major tile: rows n0.. of X
-// are the columns of B, columns k0.. of X its rows.
-template <int LD>
-__device__ __forceinline__ void load_bt(uint32_t b[2], const bf16* tile,
-                                        int n0, int k0, int g, int t) {
-  const bf16* p = tile + (n0 + g) * LD + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
+// K-major operand rows [row0, row0 + 64) x k [16 kk, 16 kk + 16) of a
+// swizzled tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return rt::sw128_desc(
+      tile + (kk / 4) * ROWS * 128 + row0 * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major operand: rows [16 kk, 16 kk + 16) of a swizzled tile of ROWS
+// rows as the k of the product, all D columns as its n.
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return rt::sw128_desc(tile + kk * 16 * 128, ROWS * 128, 1024);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  rt::wgmma_rs_n64_tb(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  rt::wgmma_rs_n128_tb(d, a, db);
+}
+
+// The A operand of k step kk (16 columns) from a 64 x 64 f32
+// accumulator, rounded to bf16: the accumulator's layout of two
+// neighbouring n8 blocks is the register-A layout of one k16 step.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&s)[32], int kk) {
+  a[0] = rt::pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = rt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = rt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = rt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// The value, opaque to the compiler: descriptors derived from it are
+// rebuilt in each loop trip (one add each) instead of being hoisted into
+// registers for the whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// K2: dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + tile_bytes<D>(kQ2);
+  static constexpr int kK = kDo + tile_bytes<D>(kQ2);  // + s * stage
+  static constexpr int kV = kK + kStages * tile_bytes<D>(kK2);
+  static constexpr int kBars = kV + kStages * tile_bytes<D>(kK2);
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// Live key tiles of K2's block at query rows [q0, q0 + kQ2).
+__device__ __forceinline__ int dq_tiles(int q0, int Sq, int Sk, int causal) {
+  const int q_last = min(q0 + kQ2 - 1, Sq - 1);
+  const int kv_end = causal ? min(Sk, q_last + (Sk - Sq) + 1) : Sk;
+  return (kv_end + kK2 - 1) / kK2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int64_t H, int64_t KVH,
-                        int64_t Sq, int64_t Sk, int64_t qsb, int64_t qss,
-                        int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-                        int64_t vsb, int64_t vss, int64_t vsh, int64_t dsb,
-                        int64_t dss, int64_t dsh, int causal,
-                        float sm_scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ds = Qs + kBQ2 * LD;
-  bf16* Ks = Ds + kBQ2 * LD;
-  bf16* Vs = Ks + kBK2 * LD;
+                        bf16* __restrict__ dq, int B, int H, int KVH, int Sq,
+                        int Sk, int causal, float sm_scale) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBQ2;
-  const int64_t h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t kvh = h / (H / KVH);
-  const int64_t offset = Sk - Sq;
-  const int wr = warp * 16;       // the warp's first row in the tile
-  const int64_t r0 = q0 + wr + g;  // this thread's two rows
-  const int64_t r1 = r0 + 8;
+  // heaviest first: the last query tiles see the most keys
+  const int n_qt = (Sq + kQ2 - 1) / kQ2;
+  const int per_tile = H * B;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile
+                        : static_cast<int>(blockIdx.x) / per_tile;
+  const int h = static_cast<int>(blockIdx.x) % per_tile % H;
+  const int b = static_cast<int>(blockIdx.x) % per_tile / H;
+  const int kvh = h / (H / KVH);
+  const int q0 = qt * kQ2;
+  const int offset = Sk - Sq;
+  const int n_tiles = dq_tiles(q0, Sq, Sk, causal);
 
-  load_tile<kBQ2, D>(Qs, q + b * qsb + h * qsh, qss, q0, Sq);
-  load_tile<kBQ2, D>(Ds, dout + b * dsb + h * dsh, dss, q0, Sq);
-  const float* lb = lse + (b * H + h) * Sq;
-  const float* db = delta + (b * H + h) * Sq;
-  const float lse0 = r0 < Sq ? lb[r0] : 0.f, lse1 = r1 < Sq ? lb[r1] : 0.f;
-  const float dl0 = r0 < Sq ? db[r0] : 0.f, dl1 = r1 < Sq ? db[r1] : 0.f;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int64_t q_last = rt::min64(q0 + kBQ2 - 1, Sq - 1);
-  const int64_t kv_end = causal ? rt::min64(Sk, q_last + offset + 1) : Sk;
-  const int n_tiles =
-      kv_end > 0 ? static_cast<int>((kv_end + kBK2 - 1) / kBK2) : 0;
-  const bf16* kb = k + b * ksb + kvh * ksh;
-  const bf16* vb = v + b * vsb + kvh * vsh;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int64_t k0 = static_cast<int64_t>(j) * kBK2;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<kBK2, D>(Ks, kb, kss, k0, Sk);
-    load_tile<kBK2, D>(Vs, vb, vss, k0, Sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys.
-    float s[kBK2 / 8][4], dp[kBK2 / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK2 / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, Qs, wr, kk * 16, g, t);
-      load_a<LD>(da, Ds, wr, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kBK2 / 8; ++nt) {
-        uint32_t bk[2], bv[2];
-        load_bt<LD>(bk, Ks, nt * 8, kk * 16, g, t);
-        load_bt<LD>(bv, Vs, nt * 8, kk * 16, g, t);
-        rt::mma_bf16_16816(s[nt], qa, bk);
-        rt::mma_bf16_16816(dp[nt], da, bv);
-      }
+  if (threadIdx.x == 0) {
+    rt::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      rt::mbar_init(&full[s], 1);
+      rt::mbar_init(&empty[s], kConsumerThreads);
     }
+    rt::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // P from lse (0 where masked), then dS = P (dP - delta) scale, in s.
-#pragma unroll
-    for (int nt = 0; nt < kBK2 / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t key = k0 + nt * 8 + 2 * t + (e & 1);
-        const int64_t row = e < 2 ? r0 : r1;
-        const bool live = key < Sk && row < Sq && (!causal || key <= row + offset);
-        const float p =
-            live ? expf(s[nt][e] * sm_scale - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - (e < 2 ? dl0 : dl1)) * sm_scale;
-      }
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every TMA load
+    rt::setmaxnreg_dec<24>();
+    if (threadIdx.x != 256) return;
+    rt::mbar_arrive_expect_tx(q_full, 2 * tile_bytes<D>(kQ2));
+    tma_tile<D, kQ2>(smem + L::kQ, &tq, q_full, q0, h, b);
+    tma_tile<D, kQ2>(smem + L::kDo, &tdo, q_full, q0, h, b);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      rt::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      rt::mbar_arrive_expect_tx(&full[s], 2 * tile_bytes<D>(kK2));
+      tma_tile<D, kK2>(smem + L::kK + s * tile_bytes<D>(kK2), &tk, &full[s],
+                       it * kK2, kvh, b);
+      tma_tile<D, kK2>(smem + L::kV + s * tile_bytes<D>(kK2), &tv, &full[s],
+                       it * kK2, kvh, b);
     }
+    return;
+  }
 
-    // dQ += dS K, dS rounded to bf16.
+  // consumers: warpgroup wg owns query rows [qw, qw + 64)
+  rt::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int qw = q0 + 64 * wg;
+  const int r0 = qw + 16 * warp + lane / 4;  // this thread's rows r0, r0 + 8
+  const int r1 = r0 + 8;
+  const float scale_log2 = sm_scale * kLog2e;
+  const float* lb = lse + (static_cast<int64_t>(b) * H + h) * Sq;
+  const float* db = delta + (static_cast<int64_t>(b) * H + h) * Sq;
+  const float lse0 = r0 < Sq ? lb[r0] * kLog2e : 0.f;
+  const float lse1 = r1 < Sq ? lb[r1] * kLog2e : 0.f;
+  const float dl0 = r0 < Sq ? db[r0] : 0.f;
+  const float dl1 = r1 < Sq ? db[r1] : 0.f;
+  const int q_last = min(qw + 63, Sq - 1);
+
+  float acc[D / 2];
+  zero(acc);
+  const uint32_t q_sm = rt::smem_u32(smem + L::kQ);
+  const uint32_t do_sm = rt::smem_u32(smem + L::kDo);
+  rt::mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    rt::mbar_wait(&full[s], (it / kStages) & 1);
+    const int k0 = it * kK2;
+    const bool skip = qw >= Sq || (causal && k0 > q_last + offset);
+    if (!skip) {
+      const uint32_t k_sm =
+          rt::smem_u32(smem + L::kK + s * tile_bytes<D>(kK2));
+      const uint32_t v_sm =
+          rt::smem_u32(smem + L::kV + s * tile_bytes<D>(kK2));
+      const uint32_t qw_sm = opaque(q_sm + 64 * wg * 128);
+      const uint32_t dw_sm = opaque(do_sm + 64 * wg * 128);
+      float s_acc[32], dp_acc[32];
+      rt::wgmma_fence();
+      rt::wgmma_ss_n64_first(s_acc, kmajor<kQ2>(qw_sm, 0, 0),
+                             kmajor<kK2>(k_sm, 0, 0));
 #pragma unroll
-    for (int kk = 0; kk < kBK2 / 16; ++kk) {
-      uint32_t sa[4];
-      sa[0] = rt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = rt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = rt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = rt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int kk = 1; kk < D / 16; ++kk)
+        rt::wgmma_ss_n64(s_acc, kmajor<kQ2>(qw_sm, 0, kk),
+                         kmajor<kK2>(k_sm, 0, kk));
+      rt::wgmma_commit();
+      rt::wgmma_ss_n64_first(dp_acc, kmajor<kQ2>(dw_sm, 0, 0),
+                             kmajor<kK2>(v_sm, 0, 0));
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, Ks + (kk * 16 + (lane & 15)) * LD + dt * 8);
-        rt::mma_bf16_16816(acc[dt], sa, bf);
+      for (int kk = 1; kk < D / 16; ++kk)
+        rt::wgmma_ss_n64(dp_acc, kmajor<kQ2>(dw_sm, 0, kk),
+                         kmajor<kK2>(v_sm, 0, kk));
+      rt::wgmma_commit();
+
+      // P from lse (0 where masked) while dP = dO V^T still runs
+      rt::wgmma_wait<1>();
+      rt::fence_regs(s_acc);
+      const bool interior = qw + 63 < Sq && k0 + kK2 - 1 < Sk &&
+                            (!causal || k0 + kK2 - 1 <= qw + offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i & 2) != 0;
+        float p = exp2f(s_acc[i] * scale_log2 - (hi ? lse1 : lse0));
+        if (!interior) {
+          const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          const int row = hi ? r1 : r0;
+          const bool live =
+              row < Sq && key < Sk && (!causal || key <= row + offset);
+          p = live ? p : 0.f;
+        }
+        s_acc[i] = p;
       }
+
+      // then dS = P (dP - delta) scale
+      rt::wgmma_wait<0>();
+      rt::fence_regs(dp_acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s_acc[i] *= (dp_acc[i] - ((i & 2) ? dl1 : dl0)) * sm_scale;
+
+      // dQ += dS K, dS rounded to bf16 (all of it before the first
+      // wgmma reads it), K read MN-major
+      uint32_t a[kK2 / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kK2 / 16; ++kk) acc_to_a(a[kk], s_acc, kk);
+      rt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK2 / 16; ++kk)
+        wgmma_rs_tb<D>(acc, a[kk], mnmajor<kK2>(k_sm, kk));
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(acc);
     }
+    rt::mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(dq + ((b * Sq + r0) * H + h) * D + c) =
-          rt::pack_bf16(acc[dt][0], acc[dt][1]);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(dq + ((b * Sq + r1) * H + h) * D + c) =
-          rt::pack_bf16(acc[dt][2], acc[dt][3]);
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = (i & 2) ? r1 : r0;
+    const int c = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < Sq)
+      *reinterpret_cast<uint32_t*>(
+          dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D + c) =
+          rt::pack_bf16(acc[i], acc[i + 1]);
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: dK, dV
+// ---------------------------------------------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+struct DkvSmem {
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + tile_bytes<D>(kK3);
+  static constexpr int kQ = kV + tile_bytes<D>(kK3);  // + s * stage
+  static constexpr int kDo = kQ + kStages * tile_bytes<D>(kQ3);
+  static constexpr int kLse = kDo + kStages * tile_bytes<D>(kQ3);
+  static constexpr int kDelta = kLse + kStages * kQ3 * 4;
+  static constexpr int kBars = kDelta + kStages * kQ3 * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// First live query tile of K3's block at keys [k0, k0 + kK3): rows
+// before k0 - (Sk - Sq) see none of its keys.
+__device__ __forceinline__ int dkv_q_start(int k0, int Sq, int Sk,
+                                           int causal) {
+  const int first = causal ? max(0, k0 - (Sk - Sq)) : 0;
+  return first / kQ3 * kQ3;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int64_t H, int64_t KVH, int64_t Sq, int64_t Sk,
-                         int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
-                         int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-                         int64_t vsh, int64_t dsb, int64_t dss, int64_t dsh,
-                         int causal, float sm_scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBK3 * LD;
-  bf16* Qs = Vs + kBK3 * LD;
-  bf16* Ds = Qs + kBQ3 * LD;
-  float* Ls = reinterpret_cast<float*>(Ds + kBQ3 * LD);
-  float* Dl = Ls + kBQ3;
+                         float* __restrict__ pk, float* __restrict__ pv,
+                         int B, int H, int KVH, int Sq, int Sk, int causal,
+                         float sm_scale) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* lse_sm = reinterpret_cast<float*>(smem + L::kLse);
+  float* delta_sm = reinterpret_cast<float*>(smem + L::kDelta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBK3;
-  const int64_t kvh = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t n_rep = H / KVH;
-  const int64_t offset = Sk - Sq;
-  const int wk = warp * 16;        // the warp's first key in the block
-  const int64_t key0 = k0 + wk + g;  // this thread's two keys
-  const int64_t key1 = key0 + 8;
+  // heaviest first: the first key tiles see the most queries
+  const int per_tile = H * B;
+  const int kt = static_cast<int>(blockIdx.x) / per_tile;
+  const int h = static_cast<int>(blockIdx.x) % per_tile % H;
+  const int b = static_cast<int>(blockIdx.x) % per_tile / H;
+  const int n_rep = H / KVH;
+  const int kvh = h / n_rep;
+  const int k0 = kt * kK3;
+  const int offset = Sk - Sq;
+  const int q_start = dkv_q_start(k0, Sq, Sk, causal);
+  const int n_tiles = (Sq - q_start + kQ3 - 1) / kQ3;
 
-  load_tile<kBK3, D>(Ks, k + b * ksb + kvh * ksh, kss, k0, Sk);
-  load_tile<kBK3, D>(Vs, v + b * vsb + kvh * vsh, vss, k0, Sk);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  // Query rows before k0 - offset see none of the block's keys.
-  const int64_t first = causal ? (k0 - offset > 0 ? k0 - offset : 0) : 0;
-  const int64_t q_start = first / kBQ3 * kBQ3;
-
-  for (int64_t hr = 0; hr < n_rep; ++hr) {
-    const int64_t h = kvh * n_rep + hr;
-    const bf16* qb = q + b * qsb + h * qsh;
-    const bf16* db = dout + b * dsb + h * dsh;
-    const float* lb = lse + (b * H + h) * Sq;
-    const float* deb = delta + (b * H + h) * Sq;
-    for (int64_t q0 = q_start; q0 < Sq; q0 += kBQ3) {
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile<kBQ3, D>(Qs, qb, qss, q0, Sq);
-      load_tile<kBQ3, D>(Ds, db, dss, q0, Sq);
-      if (threadIdx.x < kBQ3) {
-        const int64_t r = q0 + threadIdx.x;
-        Ls[threadIdx.x] = r < Sq ? lb[r] : 0.f;
-        Dl[threadIdx.x] = r < Sq ? deb[r] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 rows.
-      float st[kBQ3 / 8][4], dpt[kBQ3 / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kBQ3 / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<LD>(ka, Ks, wk, kk * 16, g, t);
-        load_a<LD>(va, Vs, wk, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < kBQ3 / 8; ++nt) {
-          uint32_t bq[2], bd[2];
-          load_bt<LD>(bq, Qs, nt * 8, kk * 16, g, t);
-          load_bt<LD>(bd, Ds, nt * 8, kk * 16, g, t);
-          rt::mma_bf16_16816(st[nt], ka, bq);
-          rt::mma_bf16_16816(dpt[nt], va, bd);
-        }
-      }
-
-      // P^T (0 where masked) in st, dS^T in dpt.
-#pragma unroll
-      for (int nt = 0; nt < kBQ3 / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const int64_t row = q0 + col;
-          const int64_t key = e < 2 ? key0 : key1;
-          const bool live =
-              row < Sq && key < Sk && (!causal || key <= row + offset);
-          const float p = live ? expf(st[nt][e] * sm_scale - Ls[col]) : 0.f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - Dl[col]) * sm_scale;
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16.
-#pragma unroll
-      for (int kk = 0; kk < kBQ3 / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pa[0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        sa[0] = rt::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        sa[1] = rt::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        sa[2] = rt::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        sa[3] = rt::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          uint32_t bd[2], bq[2];
-          ldmatrix_x2_trans(bd, Ds + (kk * 16 + (lane & 15)) * LD + dt * 8);
-          ldmatrix_x2_trans(bq, Qs + (kk * 16 + (lane & 15)) * LD + dt * 8);
-          rt::mma_bf16_16816(dv_acc[dt], pa, bd);
-          rt::mma_bf16_16816(dk_acc[dt], sa, bq);
-        }
-      }
+  if (threadIdx.x == 0) {
+    rt::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread's arrival and the producer warp's lse/delta
+      rt::mbar_init(&full[s], 2);
+      rt::mbar_init(&empty[s], kConsumerThreads);
     }
+    rt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer warp: lane 0 issues the TMA loads, the warp loads lse and
+    // delta (scaled to base 2) for each query tile
+    rt::setmaxnreg_dec<24>();
+    if (threadIdx.x >= 288) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      rt::mbar_arrive_expect_tx(kv_full, 2 * tile_bytes<D>(kK3));
+      tma_tile<D, kK3>(smem + L::kK, &tk, kv_full, k0, kvh, b);
+      tma_tile<D, kK3>(smem + L::kV, &tv, kv_full, k0, kvh, b);
+    }
+    const int64_t rows = (static_cast<int64_t>(b) * H + h) * Sq;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int q0 = q_start + it * kQ3;
+      rt::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        rt::mbar_arrive_expect_tx(&full[s], 2 * tile_bytes<D>(kQ3));
+        tma_tile<D, kQ3>(smem + L::kQ + s * tile_bytes<D>(kQ3), &tq,
+                         &full[s], q0, h, b);
+        tma_tile<D, kQ3>(smem + L::kDo + s * tile_bytes<D>(kQ3), &tdo,
+                         &full[s], q0, h, b);
+      }
+#pragma unroll
+      for (int r = lane; r < kQ3; r += 32) {
+        const bool in = q0 + r < Sq;
+        lse_sm[s * kQ3 + r] = in ? lse[rows + q0 + r] * kLog2e : 0.f;
+        delta_sm[s * kQ3 + r] = in ? delta[rows + q0 + r] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) rt::mbar_arrive(&full[s]);
+    }
+    return;
   }
 
+  // consumers: warpgroup wg owns keys [kw, kw + 64)
+  rt::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int kw = k0 + 64 * wg;
+  const int key0 = kw + 16 * warp + lane / 4;  // this thread's keys key0, +8
+  const bool wg_live = kw < Sk;
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float dv_acc[D / 2], dk_acc[D / 2];
+  zero(dv_acc);
+  zero(dk_acc);
+  const uint32_t k_sm = rt::smem_u32(smem + L::kK);
+  const uint32_t v_sm = rt::smem_u32(smem + L::kV);
+  rt::mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    rt::mbar_wait(&full[s], (it / kStages) & 1);
+    const int q0 = q_start + it * kQ3;
+    const bool skip = !wg_live || (causal && kw > q0 + kQ3 - 1 + offset);
+    if (!skip) {
+      const uint32_t q_sm =
+          rt::smem_u32(smem + L::kQ + s * tile_bytes<D>(kQ3));
+      const uint32_t do_sm =
+          rt::smem_u32(smem + L::kDo + s * tile_bytes<D>(kQ3));
+      const uint32_t kw_sm = opaque(k_sm + 64 * wg * 128);
+      const uint32_t vw_sm = opaque(v_sm + 64 * wg * 128);
+      float st[32], dpt[32];
+      rt::wgmma_fence();
+      rt::wgmma_ss_n64_first(st, kmajor<kK3>(kw_sm, 0, 0),
+                             kmajor<kQ3>(q_sm, 0, 0));
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (key0 < Sk) {
-      const int64_t o = ((b * Sk + key0) * KVH + kvh) * D + c;
-      *reinterpret_cast<uint32_t*>(dk + o) =
-          rt::pack_bf16(dk_acc[dt][0], dk_acc[dt][1]);
-      *reinterpret_cast<uint32_t*>(dv + o) =
-          rt::pack_bf16(dv_acc[dt][0], dv_acc[dt][1]);
+      for (int kk = 1; kk < D / 16; ++kk)
+        rt::wgmma_ss_n64(st, kmajor<kK3>(kw_sm, 0, kk),
+                         kmajor<kQ3>(q_sm, 0, kk));
+      rt::wgmma_commit();
+      rt::wgmma_ss_n64_first(dpt, kmajor<kK3>(vw_sm, 0, 0),
+                             kmajor<kQ3>(do_sm, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        rt::wgmma_ss_n64(dpt, kmajor<kK3>(vw_sm, 0, kk),
+                         kmajor<kQ3>(do_sm, 0, kk));
+      rt::wgmma_commit();
+
+      // P^T (0 where masked) while dP^T = V dO^T still runs; each k step
+      // of 16 query columns rounded to bf16 as soon as it is done, as the
+      // A operand of dV += P^T dO (dO read MN-major), issued at once
+      rt::wgmma_wait<1>();
+      rt::fence_regs(st);
+      const float* ls = lse_sm + s * kQ3;
+      const float* ds = delta_sm + s * kQ3;
+      const bool interior = q0 + kQ3 - 1 < Sq && kw + 63 < Sk &&
+                            (!causal || kw + 63 <= q0 + offset);
+      uint32_t pa[kQ3 / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQ3 / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * kk + jj;
+          const int col = 8 * j + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = exp2f(st[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+            if (!interior) {
+              const int q = q0 + col + (e & 1);
+              const int key = key0 + 8 * (e >> 1);
+              const bool live =
+                  q < Sq && key < Sk && (!causal || key <= q + offset);
+              p = live ? p : 0.f;
+            }
+            st[i] = p;
+          }
+        }
+        acc_to_a(pa[kk], st, kk);
+      }
+      rt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQ3 / 16; ++kk)
+        wgmma_rs_tb<D>(dv_acc, pa[kk], mnmajor<kQ3>(do_sm, kk));
+      rt::wgmma_commit();
+
+      // dS^T = P^T (dP^T - delta) scale while dV's products run, then
+      // dK += dS^T Q (Q read MN-major)
+      rt::wgmma_wait<1>();
+      rt::fence_regs(dpt);
+      uint32_t sa[kQ3 / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQ3 / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * kk + jj;
+          const float2 d2 = *reinterpret_cast<const float2*>(
+              ds + 8 * j + 2 * (lane % 4));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x)) * sm_scale;
+          }
+        }
+        acc_to_a(sa[kk], dpt, kk);
+      }
+      rt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQ3 / 16; ++kk)
+        wgmma_rs_tb<D>(dk_acc, sa[kk], mnmajor<kQ3>(q_sm, kk));
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(dv_acc);
+      rt::fence_regs(dk_acc);
     }
-    if (key1 < Sk) {
-      const int64_t o = ((b * Sk + key1) * KVH + kvh) * D + c;
+    rt::mbar_arrive(&empty[s]);
+  }
+
+  if (!wg_live) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int key = key0 + ((i & 2) ? 8 : 0);
+    const int c = 8 * (i / 4) + 2 * (lane % 4);
+    if (key >= Sk) continue;
+    if (n_rep == 1) {
+      const int64_t o =
+          ((static_cast<int64_t>(b) * Sk + key) * KVH + kvh) * D + c;
       *reinterpret_cast<uint32_t*>(dk + o) =
-          rt::pack_bf16(dk_acc[dt][2], dk_acc[dt][3]);
+          rt::pack_bf16(dk_acc[i], dk_acc[i + 1]);
       *reinterpret_cast<uint32_t*>(dv + o) =
-          rt::pack_bf16(dv_acc[dt][2], dv_acc[dt][3]);
+          rt::pack_bf16(dv_acc[i], dv_acc[i + 1]);
+    } else {
+      const int64_t o =
+          ((static_cast<int64_t>(b) * Sk + key) * H + h) * D + c;
+      *reinterpret_cast<float2*>(pk + o) =
+          make_float2(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<float2*>(pv + o) =
+          make_float2(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
-template <int D>
-constexpr int dq_smem() {
-  return (2 * kBQ2 + 2 * kBK2) * (D + 8) * 2;
+// dk/dv [rows, D] bf16 = the sum over r = 0 .. n_rep - 1, in that order,
+// of the partials [rows, n_rep, D] f32 (rows = B Sk KVH: the scratch
+// [B, Sk, H, D] read with each GQA group's heads side by side).
+__global__ void gqa_sum_kernel(const float* __restrict__ pk,
+                               const float* __restrict__ pv,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int64_t n4, int n_rep, int D) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int64_t row = i / (D / 4);
+  const int64_t c = i % (D / 4) * 4;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int r = 0; r < n_rep; ++r) {
+    const int64_t o = (row * n_rep + r) * D + c;
+    const float4 a = *reinterpret_cast<const float4*>(pk + o);
+    const float4 v = *reinterpret_cast<const float4*>(pv + o);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += v.x; sv.y += v.y; sv.z += v.z; sv.w += v.w;
+  }
+  const int64_t o = row * D + c;
+  *reinterpret_cast<uint2*>(dk + o) =
+      make_uint2(rt::pack_bf16(sk.x, sk.y), rt::pack_bf16(sk.z, sk.w));
+  *reinterpret_cast<uint2*>(dv + o) =
+      make_uint2(rt::pack_bf16(sv.x, sv.y), rt::pack_bf16(sv.z, sv.w));
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Tensor maps of the four operands, Q/dO in boxes of q_rows rows and
+// K/V in boxes of k_rows; false if cuTensorMapEncodeTiled refuses one.
+bool make_maps(Maps* m, const void* q, const void* k, const void* v,
+               const void* dout, int64_t B, int64_t H, int64_t KVH,
+               int64_t Sq, int64_t Sk, int64_t D, const int64_t* st,
+               int q_rows, int k_rows) {
+  return rt::make_map_bshd(&m->q, q, B, Sq, H, D, st[0], st[1], st[2],
+                           q_rows) &&
+         rt::make_map_bshd(&m->k, k, B, Sk, KVH, D, st[3], st[4], st[5],
+                           k_rows) &&
+         rt::make_map_bshd(&m->v, v, B, Sk, KVH, D, st[6], st[7], st[8],
+                           k_rows) &&
+         rt::make_map_bshd(&m->dout, dout, B, Sq, H, D, st[9], st[10],
+                           st[11], q_rows);
 }
 
 template <int D>
-constexpr int dkv_smem() {
-  return (2 * kBK3 + 2 * kBQ3) * (D + 8) * 2 + 2 * kBQ3 * 4;
-}
-
-template <int D>
-int launch_dq(dim3 grid, cudaStream_t s, const bf16* qp, const bf16* kp,
-              const bf16* vp, const bf16* dp, const float* lp,
-              const float* dlp, bf16* dqp, int64_t H, int64_t KVH,
-              int64_t Sq, int64_t Sk, const int64_t* st, int causal,
-              float sm_scale) {
+int launch_dq(const Maps& m, cudaStream_t s, const float* lp,
+              const float* dlp, bf16* dqp, int64_t B, int64_t H, int64_t KVH,
+              int64_t Sq, int64_t Sk, int causal, float sm_scale) {
+  constexpr int smem = DqSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_smem<D>());
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), s>>>(
-      qp, kp, vp, dp, lp, dlp, dqp, H, KVH, Sq, Sk, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, sm_scale);
+  const unsigned grid = static_cast<unsigned>((Sq + kQ2 - 1) / kQ2 * H * B);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, s>>>(
+      m.q, m.k, m.v, m.dout, lp, dlp, dqp, static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(KVH), static_cast<int>(Sq),
+      static_cast<int>(Sk), causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dkv(dim3 grid, cudaStream_t s, const bf16* qp, const bf16* kp,
-               const bf16* vp, const bf16* dp, const float* lp,
-               const float* dlp, bf16* dkp, bf16* dvp, int64_t H,
-               int64_t KVH, int64_t Sq, int64_t Sk, const int64_t* st,
+int launch_dkv(const Maps& m, cudaStream_t s, const float* lp,
+               const float* dlp, bf16* dkp, bf16* dvp, float* pk, float* pv,
+               int64_t B, int64_t H, int64_t KVH, int64_t Sq, int64_t Sk,
                int causal, float sm_scale) {
+  constexpr int smem = DkvSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_smem<D>());
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), s>>>(
-      qp, kp, vp, dp, lp, dlp, dkp, dvp, H, KVH, Sq, Sk, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, sm_scale);
+  const unsigned grid = static_cast<unsigned>((Sk + kK3 - 1) / kK3 * H * B);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, s>>>(
+      m.q, m.k, m.v, m.dout, lp, dlp, dkp, dvp, pk, pv, static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(KVH), static_cast<int>(Sq),
+      static_cast<int>(Sk), causal, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || H == KVH) return static_cast<int>(err);
+  const int64_t n4 = B * Sk * KVH * D / 4;
+  gqa_sum_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, s>>>(
+      pk, pv, dkp, dvp, n4, static_cast<int>(H / KVH), static_cast<int>(D));
   return static_cast<int>(cudaGetLastError());
+}
+
+bool sizes_ok(int64_t B, int64_t H, int64_t Sq, int64_t Sk) {
+  // block indices and positions are 32-bit in the kernels
+  const int64_t lim = int64_t(1) << 30;
+  return B * H * ((Sq + kQ2 - 1) / kQ2) < lim &&
+         B * H * ((Sk + kK3 - 1) / kK3) < lim && Sq < lim && Sk < lim;
 }
 
 }  // namespace
@@ -418,55 +679,64 @@ RT_EXPORT int rt_flash_attention_bwd_dq(
     int64_t vsb, int64_t vss, int64_t vsh, int64_t dsb, int64_t dss,
     int64_t dsh, int causal, float sm_scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sk == 0)  // no key: dq is 0
+    return static_cast<int>(
+        cudaMemsetAsync(dq, 0, B * Sq * H * D * sizeof(bf16), s));
+  if ((D != 64 && D != 128) || !sizes_ok(B, H, Sq, Sk))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                           vsb, vss, vsh, dsb, dss, dsh};
-  dim3 grid(static_cast<unsigned>((Sq + kBQ2 - 1) / kBQ2),
-            static_cast<unsigned>(H), static_cast<unsigned>(B));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dp = static_cast<const bf16*>(dout);
+  Maps m;
+  if (!make_maps(&m, q, k, v, dout, B, H, KVH, Sq, Sk, D, st, kQ2, kK2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dlp = static_cast<const float*>(delta);
   auto* dqp = static_cast<bf16*>(dq);
   if (D == 128)
-    return launch_dq<128>(grid, s, qp, kp, vp, dp, lp, dlp, dqp, H, KVH, Sq,
-                          Sk, st, causal, sm_scale);
-  if (D == 64)
-    return launch_dq<64>(grid, s, qp, kp, vp, dp, lp, dlp, dqp, H, KVH, Sq,
-                         Sk, st, causal, sm_scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dq<128>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
+                          sm_scale);
+  return launch_dq<64>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
+                       sm_scale);
 }
 
 // Same inputs as rt_flash_attention_bwd_dq; dk, dv: [B, Sk, KVH, D]
 // contiguous bf16, each the sum over the H / KVH query heads of a group.
+// pk, pv: f32 scratch [B, Sk, H, D] for the per-head partials, used when
+// H > KVH (may be null when H == KVH).
 RT_EXPORT int rt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int64_t B,
-    int64_t H, int64_t KVH, int64_t Sq, int64_t Sk, int64_t D, int64_t qsb,
-    int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-    int64_t vsb, int64_t vss, int64_t vsh, int64_t dsb, int64_t dss,
-    int64_t dsh, int causal, float sm_scale, void* stream) {
+    const void* lse, const void* delta, void* dk, void* dv, void* pk,
+    void* pv, int64_t B, int64_t H, int64_t KVH, int64_t Sq, int64_t Sk,
+    int64_t D, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+    int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
+    int64_t dsb, int64_t dss, int64_t dsh, int causal, float sm_scale,
+    void* stream) {
   if (B == 0 || Sk == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sq == 0) {  // no query: dk and dv are 0
+    const size_t n = B * Sk * KVH * D * sizeof(bf16);
+    cudaError_t err = cudaMemsetAsync(dk, 0, n, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, n, s);
+    return static_cast<int>(err);
+  }
+  if ((D != 64 && D != 128) || !sizes_ok(B, H, Sq, Sk) ||
+      (H != KVH && (pk == nullptr || pv == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                           vsb, vss, vsh, dsb, dss, dsh};
-  dim3 grid(static_cast<unsigned>((Sk + kBK3 - 1) / kBK3),
-            static_cast<unsigned>(KVH), static_cast<unsigned>(B));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dp = static_cast<const bf16*>(dout);
+  Maps m;
+  if (!make_maps(&m, q, k, v, dout, B, H, KVH, Sq, Sk, D, st, kQ3, kK3))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dlp = static_cast<const float*>(delta);
   auto* dkp = static_cast<bf16*>(dk);
   auto* dvp = static_cast<bf16*>(dv);
+  auto* pkp = static_cast<float*>(pk);
+  auto* pvp = static_cast<float*>(pv);
   if (D == 128)
-    return launch_dkv<128>(grid, s, qp, kp, vp, dp, lp, dlp, dkp, dvp, H,
-                           KVH, Sq, Sk, st, causal, sm_scale);
-  if (D == 64)
-    return launch_dkv<64>(grid, s, qp, kp, vp, dp, lp, dlp, dkp, dvp, H,
-                          KVH, Sq, Sk, st, causal, sm_scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dkv<128>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH, Sq,
+                           Sk, causal, sm_scale);
+  return launch_dkv<64>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH, Sq, Sk,
+                        causal, sm_scale);
 }

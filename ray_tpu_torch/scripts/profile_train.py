@@ -27,6 +27,7 @@ TOP_KERNELS = 15
 GROUPS = (("flash_fwd_kernel", "K1 flash fwd"),
           ("flash_bwd_dq_kernel", "K2 flash bwd dQ"),
           ("flash_bwd_dkv_kernel", "K3 flash bwd dK/dV"),
+          ("gqa_sum_kernel", "K3 flash bwd dK/dV"),  # K3's group sum
           ("rms_norm_kernel", "K4 rmsnorm"),
           ("int8_mm", "K5 int8 matmul"),
           ("multi_tensor_apply", "AdamW"),

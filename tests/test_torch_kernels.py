@@ -27,6 +27,51 @@ def test_int8_split_k_plan(m, k, n, sms, want):
     assert tqm._splits(m, k, n, sms) == want
 
 
+def _live_pairs(q_rows, k_cols, sq, sk, causal):
+    """Live (query, key) pairs between query rows and key columns."""
+    off = sk - sq
+    return sum(1 for i in q_rows if i < sq for j in k_cols
+               if j < sk and (not causal or j <= i + off))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 200, 2048])
+@pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2), (28, 4),
+                                   (32, 4), (32, 2)])  # groups 1-16
+def test_flash_backward_plan(h, kvh, s, d):
+    b = 2
+    plan = tatt._bwd_plan(b, s, s, h, kvh, d, causal=True)
+    n_q, n_k = -(-s // 128), -(-s // 128)
+    assert plan.group == h // kvh
+    assert plan.dq_blocks == n_q * h * b and plan.dkv_blocks == n_k * h * b
+    assert sorted(plan.dq_order) == list(range(n_q))
+    assert sorted(plan.dkv_order) == list(range(n_k))
+    # heaviest first along the causal triangle
+    dq_work = [_live_pairs(range(128 * t, 128 * t + 128), range(s), s, s,
+                           True) if s <= 200 else (t + 1)
+               for t in plan.dq_order]
+    dkv_work = [_live_pairs(range(s), range(128 * t, 128 * t + 128), s, s,
+                            True) if s <= 200 else (n_k - t)
+                for t in plan.dkv_order]
+    assert dq_work == sorted(dq_work, reverse=True)
+    assert dkv_work == sorted(dkv_work, reverse=True)
+    # K3 splits the group: one block per query head, f32 partials for a
+    # group of more than one head
+    if h == kvh:
+        assert plan.scratch_shape is None and plan.scratch_bytes == 0
+    else:
+        assert plan.scratch_shape == (b, s, h, d)
+        assert plan.scratch_bytes == 2 * 4 * b * s * h * d
+    if (s, h, kvh, d) == (2048, 32, 4, 128):
+        # K3 splits the GQA group: at least two blocks per SM of the H100
+        assert tatt._bwd_plan(1, s, s, 32, 8, d).dkv_blocks >= 2 * 132
+
+
+def test_flash_backward_plan_noncausal_keeps_order():
+    plan = tatt._bwd_plan(1, 300, 300, 4, 1, 64, causal=False)
+    assert plan.dq_order == (0, 1, 2) and plan.dkv_order == (0, 1, 2)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -160,21 +205,44 @@ def _check_bwd(q, k, v, do, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,d,h,kvh,causal", [
-    (1, 1, 128, 4, 4, True), (63, 63, 128, 8, 2, True),
-    (200, 200, 128, 8, 2, True), (5, 77, 128, 4, 1, True),  # Sq < Sk
-    (70, 70, 64, 4, 2, True), (33, 90, 64, 4, 4, False),
-    (200, 130, 128, 8, 2, False), (128, 128, 64, 2, 1, True)])
+@pytest.mark.parametrize("sq,sk,d,h,kvh,causal,b", [
+    (1, 1, 128, 4, 4, True, 2), (63, 63, 128, 8, 2, True, 2),
+    (200, 200, 128, 8, 2, True, 2), (5, 77, 128, 4, 1, True, 2),  # Sq < Sk
+    (70, 70, 64, 4, 2, True, 2), (33, 90, 64, 4, 4, False, 2),
+    (200, 130, 128, 8, 2, False, 2), (128, 128, 64, 2, 1, True, 2),
+    # GQA groups of 1, 4, 7, 8 and one above the portable cluster size
+    (300, 300, 128, 3, 3, True, 2), (257, 257, 128, 8, 2, True, 2),
+    (190, 190, 64, 7, 1, True, 2), (150, 150, 128, 16, 2, True, 1),
+    (100, 260, 128, 16, 1, True, 1), (130, 130, 64, 11, 1, True, 1),
+    (140, 140, 128, 12, 1, False, 1),
+    # the training path's attention shape
+    (2048, 2048, 128, 32, 8, True, 1)])
 def test_flash_backward_kernels_match_plain_on_card(cuda_device, sq, sk, d,
-                                                     h, kvh, causal):
+                                                     h, kvh, causal, b):
     g = torch.Generator(device=cuda_device).manual_seed(1)
 
     def rand(s, heads):
-        return torch.randn((2, s, heads, d), generator=g,
+        return torch.randn((b, s, heads, d), generator=g,
                            device=cuda_device).bfloat16()
 
     _check_bwd(rand(sq, h), rand(sk, kvh), rand(sk, kvh), rand(sq, h),
                causal)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_are_deterministic_on_card(cuda_device):
+    """Two calls give bit-equal dQ, dK and dV (no float atomics; the GQA
+    sum runs in a fixed head order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, do = (torch.randn((1, 512, 8, 128), generator=g,
+                         device=cuda_device).bfloat16() for _ in range(2))
+    k, v = (torch.randn((1, 512, 2, 128), generator=g,
+                        device=cuda_device).bfloat16() for _ in range(2))
+    o, lse = tatt._flash_forward(q, k, v, True)
+    first = tatt._flash_backward(q, k, v, o, lse, do, True)
+    second = tatt._flash_backward(q, k, v, o, lse, do, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
