@@ -159,13 +159,16 @@ def check_flash_attention(dev, gen):
     from ray_tpu_torch.ops import attention as att
     b, h, kvh, d = 1, 32, 8, 128
     rows = []
-    for s in (8, 200, 512, 2048):
+    for s in (8, 128, 200, 512, 2048):
         q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
-        out = att.flash_attention(q, k, v, True)
-        ref = att._attention_reference(q, k, v, True)
+        out, lse = att._flash_forward(q, k, v, True)
+        ref, ref_lse = att._flash_forward_reference(q, k, v, True)
         torch.cuda.synchronize()
+        # lse is what K2 and K3 rebuild P from: every row within 1e-3
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"K1 S={s}: lse err {lse_err} > 1e-3")
         diff = out.float() - ref.float()
         err = diff.abs().max().item()
         # long rows have small outputs (about (e/i)^0.5 at row i), which
@@ -187,7 +190,7 @@ def check_flash_attention(dev, gen):
         bms, by = bound_ms(nbytes, 4.0 * b * h * d * pairs, BF16_TENSOR_FLOPS)
         rows.append(dict(
             shape=[b, s, h, kvh, d], max_abs_err=err, rel_l2_err=rel_l2,
-            worst_row_rel_l2_err=worst_row_rel,
+            worst_row_rel_l2_err=worst_row_rel, lse_max_abs_err=lse_err,
             ms=time_ms(att.flash_attention, q, k, v, True),
             call_ms=call_ms(lambda: att.flash_attention(q, k, v, True)),
             plain_ms=time_ms(att._attention_reference, q, k, v, True),
@@ -365,7 +368,7 @@ def check_int8_matmul(dev, gen):
     from ray_tpu_torch.ops import quant_matmul as qm
     rows = []
     for m, k, n in ((8, 4096, 14336), (8, 14336, 4096), (512, 4096, 14336),
-                    (3, 4096, 11008)):
+                    (1024, 4096, 14336), (3, 4096, 11008)):
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         w8, scale = qm.quantize_int8(w)
         del w

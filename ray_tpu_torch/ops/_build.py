@@ -37,10 +37,11 @@ _SIGNATURES: Dict[str, List] = {
     # x, w, out, rows, d, eps, is_bf16, stream
     "rt_rms_norm": [_P, _P, _P, _I, _I, _F, ctypes.c_int, _P],
     # q, k, v, o, lse, B, H, KVH, Sq, Sk, D, q strides (b, s, h),
-    # k strides, v strides, causal, sm_scale, stream
-    "rt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               ctypes.c_int, _F, _P],
+    # k strides, v strides, causal, sm_scale, the launch plan (blocks,
+    # first query tile, tile step), stream
+    "rt_flash_attention_fwd": [_P] * 5 + [_I] * 15
+                              + [ctypes.c_int, _F, _I, ctypes.c_int,
+                                 ctypes.c_int, _P],
     # q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, q / k / v /
     # dout strides (b, s, h), causal, sm_scale, stream
     "rt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 18
@@ -49,10 +50,9 @@ _SIGNATURES: Dict[str, List] = {
     # KVH) in place of dq
     "rt_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 18
                                   + [ctypes.c_int, _F, _P],
-    # x, w8, scale, out, workspace, M, K, N, splits, k_per_split,
-    # vec_ok, stream
-    "rt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       ctypes.c_int, _P],
+    # x, w8, scale, out, workspace, M, K, N, block_m, splits,
+    # k_per_split, vec_ok, stream
+    "rt_int8_matmul": [_P] * 5 + [_I] * 6 + [ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

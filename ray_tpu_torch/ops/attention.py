@@ -187,6 +187,37 @@ def _check_rows(name: str, t: torch.Tensor, shape, device) -> None:
                          f"{device}; got {t.dtype} {tuple(t.shape)}")
 
 
+# Query rows per K1 block (csrc/attention.cu): one consumer warpgroup,
+# two blocks per SM.
+_FWD_ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How K1 covers one forward call (csrc/attention.cu): ``blocks``
+    blocks, one per (query tile of _FWD_ROWS rows, head, batch); block i
+    takes query tile ``first + step * (i // (H * B))``, which the kernel
+    reads from these fields. Under the causal mask the last query tiles
+    see the most keys, so they run first."""
+    tiles: int
+    blocks: int
+    first: int
+    step: int
+
+    @property
+    def order(self) -> Tuple[int, ...]:
+        """The query tile of each block in launch order (the same for
+        every head and batch)."""
+        return tuple(self.first + self.step * i for i in range(self.tiles))
+
+
+def _fwd_plan(b: int, sq: int, h: int, causal: bool = True) -> FwdPlan:
+    """The launch plan of K1 for q [b, sq, h, d]."""
+    n_q = -(-sq // _FWD_ROWS)
+    return FwdPlan(tiles=n_q, blocks=n_q * h * b,
+                   first=n_q - 1 if causal else 0, step=-1 if causal else 1)
+
+
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1: q [B, Sq, H, D], k/v [B, Sk, KVH, D] bf16 on the card
@@ -194,12 +225,13 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d, sk, kvh = _check_qkv(q, k, v, causal)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.lib()
-    rc = lib.rt_flash_attention_fwd(
+    plan = _fwd_plan(b, sq, h, causal)
+    rc = _build.lib().rt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, kvh, sq, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), float(d ** -0.5), _build.stream_ptr(q.device))
+        int(causal), float(d ** -0.5), plan.blocks, plan.first, plan.step,
+        _build.stream_ptr(q.device))
     _build.check(rc, "rt_flash_attention_fwd")
     flash_attention.launches += 1
     return o, lse

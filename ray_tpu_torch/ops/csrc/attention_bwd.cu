@@ -64,81 +64,14 @@ constexpr int kK3 = 128;  // K3: keys per block
 constexpr int kQ3 = 64;   // K3: query rows per tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Bytes of a [rows, D] bf16 tile: D / 64 blocks of rows x 128 bytes.
-template <int D>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * D * 2;
-}
-
-// Loads rows [r0, r0 + ROWS) of head hh, batch b into a swizzled tile.
-template <int D, int ROWS>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map,
-                                         uint64_t* bar, int r0, int hh,
-                                         int b) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c)
-    rt::tma_load_4d(dst + c * ROWS * 128, map, bar, c * 64, r0, hh, b);
-}
-
-// K-major operand rows [row0, row0 + 64) x k [16 kk, 16 kk + 16) of a
-// swizzled tile of ROWS rows.
-template <int ROWS>
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
-  return rt::sw128_desc(
-      tile + (kk / 4) * ROWS * 128 + row0 * 128 + (kk % 4) * 32, 16, 1024);
-}
-
-// MN-major operand: rows [16 kk, 16 kk + 16) of a swizzled tile of ROWS
-// rows as the k of the product, all D columns as its n.
-template <int ROWS>
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return rt::sw128_desc(tile + kk * 16 * 128, ROWS * 128, 1024);
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  rt::wgmma_rs_n64_tb(d, a, db);
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t db) {
-  rt::wgmma_rs_n128_tb(d, a, db);
-}
-
-// The A operand of k step kk (16 columns) from a 64 x 64 f32
-// accumulator, rounded to bf16: the accumulator's layout of two
-// neighbouring n8 blocks is the register-A layout of one k16 step.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&s)[32], int kk) {
-  a[0] = rt::pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-  a[1] = rt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-  a[2] = rt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-  a[3] = rt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-}
-
-// The value, opaque to the compiler: descriptors derived from it are
-// rebuilt in each loop trip (one add each) instead of being hoisted into
-// registers for the whole loop.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
+using rt::acc_to_a;
+using rt::kmajor;
+using rt::mnmajor;
+using rt::opaque;
+using rt::tile_bytes;
+using rt::tma_tile;
+using rt::wgmma_rs_tb;
+using rt::zero;
 
 // ---------------------------------------------------------------------------
 // K2: dQ

@@ -274,6 +274,108 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The 64 accumulator operands of an m64n128 wgmma, read-write, and
+// their place holders %0 .. %63.
+#define RT_ACC_RW(i) "+f"(d[i])
+#define RT_ACC8(M, i) \
+  M(i), M(i + 1), M(i + 2), M(i + 3), M(i + 4), M(i + 5), M(i + 6), M(i + 7)
+#define RT_ACC64(M)                                                        \
+  RT_ACC8(M, 0), RT_ACC8(M, 8), RT_ACC8(M, 16), RT_ACC8(M, 24),            \
+      RT_ACC8(M, 32), RT_ACC8(M, 40), RT_ACC8(M, 48), RT_ACC8(M, 56)
+#define RT_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// ---------------------------------------------------------------------------
+// Tiles of the attention kernels: [rows, D] bf16 tiles that TMA writes
+// 128-byte swizzled in D / 64 blocks of rows x 128 bytes
+// ---------------------------------------------------------------------------
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
+}
+
+// Loads rows [r0, r0 + ROWS) of head hh, batch b into a swizzled tile.
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int r0, int hh,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_4d(dst + c * ROWS * 128, map, bar, c * 64, r0, hh, b);
+}
+
+// K-major operand rows [row0, row0 + 64) x k [16 kk, 16 kk + 16) of a
+// swizzled tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return sw128_desc(tile + (kk / 4) * ROWS * 128 + row0 * 128 + (kk % 4) * 32,
+                    16, 1024);
+}
+
+// MN-major operand: rows [16 kk, 16 kk + 16) of a swizzled tile of ROWS
+// rows as the k of the product, all D columns as its n.
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, ROWS * 128, 1024);
+}
+
+// D(64 x N) += A B, A from registers, B MN-major, for N = D 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  wgmma_rs_n64_tb(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  wgmma_rs_n128_tb(d, a, db);
+}
+
+// The A operand of k step kk (16 columns) from a 64 x N f32
+// accumulator, rounded to bf16: the accumulator's layout of two
+// neighbouring n8 blocks is the register-A layout of one k16 step.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&s)[N],
+                                         int kk) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// The value, opaque to the compiler: descriptors derived from it are
+// rebuilt in each loop trip (one add each) instead of being hoisted into
+// registers for the whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// Barrier `id` (1-15) over `count` threads (a multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Host: TMA tensor maps
 // ---------------------------------------------------------------------------

@@ -11,13 +11,48 @@ has to divide a block (Llama-2-7B's FFN width 11008 works).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ray_tpu_torch.ops import _build
 
 __all__ = ["scale_from_amax", "quantize_int8", "int8_matmul"]
 
-_BM_SMALL, _BM, _BN, _BK = 16, 64, 128, 32
+# Block shapes of csrc/quant_matmul.cu: decode blocks (M <= 32) own 128
+# output channels by 8, 16 or 32 tokens, prefill blocks 256 channels by
+# 128 tokens; both stream K in 64-deep stages.
+_DEPTH = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class MmPlan:
+    """How K5 covers one call: blocks of ``block_m`` tokens by ``block_n``
+    channels, ``tiles`` of them; K cut into ``splits`` ranges of
+    ``k_per_split`` (a multiple of the stage depth) over blocks, whose
+    f32 partials a second launch sums in split order."""
+    block_m: int
+    block_n: int
+    tiles: int
+    splits: int
+    k_per_split: int
+
+
+def _mm_plan(m: int, k: int, n: int, sms: int) -> MmPlan:
+    """Split K until the grid fills the card, two decode blocks or one
+    prefill block per SM (at decode one token tile leaves too few blocks
+    to keep the weights streaming), keeping at least four stages per
+    split."""
+    block_m = next((b for b in (8, 16, 32) if m <= b), 128)
+    block_n = 128 if block_m < 128 else 256
+    tiles = -(-m // block_m) * -(-n // block_n)
+    want = -(-(2 if block_m < 128 else 1) * sms // tiles)
+    splits = max(1, min(want, k // (4 * _DEPTH)))
+    k_per_split = max(_DEPTH,
+                      -(-(-(-k // splits)) // _DEPTH) * _DEPTH)
+    splits = max(1, -(-k // k_per_split))
+    return MmPlan(block_m=block_m, block_n=block_n, tiles=tiles,
+                  splits=splits, k_per_split=k_per_split)
 
 
 def scale_from_amax(amax, qmax: float = 127.0) -> torch.Tensor:
@@ -45,14 +80,6 @@ def _int8_matmul_reference(x: torch.Tensor, w8: torch.Tensor,
     to x's dtype: for bf16 x the kernel's arithmetic."""
     acc = x.float() @ w8.float()
     return (acc * scale.float()).to(x.dtype)
-
-
-def _splits(m: int, k: int, n: int, sms: int) -> int:
-    """Split K until the grid holds about four blocks per SM: at decode
-    one row tile leaves too few blocks to keep the weights streaming."""
-    tiles = -(-m // (_BM_SMALL if m <= _BM_SMALL else _BM)) * -(-n // _BN)
-    want = -(-4 * sms // tiles)
-    return max(1, min(want, -(-k // _BK)))
 
 
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor,
@@ -83,18 +110,19 @@ def int8_matmul(x: torch.Tensor, w8: torch.Tensor,
             and scale.is_contiguous()):
         raise ValueError("int8_matmul kernel needs contiguous operands")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = _splits(m, k, n, sms)
-    k_per_split = -(-(-(-k // splits)) // _BK) * _BK
-    splits = -(-k // k_per_split)
-    ws = torch.empty((splits, m, n) if splits > 1 else (1,),
-                     dtype=torch.float32, device=x.device)
+    plan = _mm_plan(m, k, n, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, n), dtype=torch.float32,
+                         device=x.device)
     vec_ok = int(k % 8 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0
                  and w8.data_ptr() % 16 == 0)
-    lib = _build.lib()
-    rc = lib.rt_int8_matmul(x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-                            out.data_ptr(), ws.data_ptr(), m, k, n, splits,
-                            k_per_split, vec_ok, _build.stream_ptr(x.device))
+    rc = _build.lib().rt_int8_matmul(
+        x.data_ptr(), w8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, k, n,
+        plan.block_m, plan.splits, plan.k_per_split, vec_ok,
+        _build.stream_ptr(x.device))
     _build.check(rc, "rt_int8_matmul")
     int8_matmul.launches += 1
     return out

@@ -19,12 +19,37 @@ from ray_tpu_torch.ops import rmsnorm as trms
 
 
 @pytest.mark.parametrize("m,k,n,sms,want", [
-    (8, 4096, 14336, 132, 5),      # decode w1/w3: split K to fill the card
-    (8, 14336, 4096, 132, 17),     # decode w2
+    (8, 4096, 14336, 132, 3),      # decode w1/w3: split K to fill the card
+    (8, 14336, 4096, 132, 9),      # decode w2
     (1024, 4096, 14336, 132, 1),   # prefill: enough tiles already
 ])
 def test_int8_split_k_plan(m, k, n, sms, want):
-    assert tqm._splits(m, k, n, sms) == want
+    assert tqm._mm_plan(m, k, n, sms).splits == want
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 32, 33, 64, 512, 1024])
+@pytest.mark.parametrize("k", [64, 96, 4096, 14336])
+@pytest.mark.parametrize("n", [1000, 4096, 11008, 14336])
+def test_int8_plan_covers_every_k_once(m, k, n):
+    plan = tqm._mm_plan(m, k, n, 132)
+    depth = 64
+    assert plan.block_m == (8 if m <= 8 else 16 if m <= 16 else
+                            32 if m <= 32 else 128)
+    assert plan.block_n == (128 if m <= 32 else 256)
+    assert plan.tiles == -(-m // plan.block_m) * -(-n // plan.block_n)
+    # the splits cut [0, k) into whole stages, none of them empty
+    assert plan.k_per_split % depth == 0
+    assert (plan.splits - 1) * plan.k_per_split < k \
+        <= plan.splits * plan.k_per_split
+    # split only while the grid holds fewer blocks than the SMs hold at
+    # once (two decode blocks or one prefill block each), and keep four
+    # stages per split
+    per_sm = 2 if m <= 32 else 1
+    if plan.splits > 1:
+        assert (plan.splits - 1) * plan.tiles < per_sm * 132
+        assert plan.k_per_split >= 4 * depth
+    elif k >= 8 * depth:
+        assert plan.tiles >= per_sm * 132
 
 
 def _live_pairs(q_rows, k_cols, sq, sk, causal):
@@ -65,6 +90,39 @@ def test_flash_backward_plan(h, kvh, s, d):
     if (s, h, kvh, d) == (2048, 32, 4, 128):
         # K3 splits the GQA group: at least two blocks per SM of the H100
         assert tatt._bwd_plan(1, s, s, 32, 8, d).dkv_blocks >= 2 * 132
+
+
+@pytest.mark.parametrize("s", [1, 63, 128, 200, 512, 2048])
+@pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2), (32, 8),
+                                   (32, 4), (32, 2)])  # groups 1-16
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_forward_plan(h, kvh, s, b):
+    plan = tatt._fwd_plan(b, s, h, causal=True)
+    n_q = -(-s // 64)
+    assert plan.tiles == n_q and plan.blocks == n_q * h * b
+    # the kernel's block i takes query tile first + step * (i // (h b)):
+    # every query tile once for each head and batch
+    tiles = [plan.first + plan.step * (i // (h * b))
+             for i in range(plan.blocks)]
+    assert sorted(tiles) == sorted(list(range(n_q)) * h * b)
+    assert tuple(tiles[::h * b]) == plan.order
+    # heaviest first under the mask: a block's time is the key tiles it
+    # runs (up to its last row's diagonal), whole tiles of 64 keys
+    work = [-(-min(s, 64 * (t + 1)) // 64) for t in plan.order]
+    assert work == sorted(work, reverse=True)
+    assert work[0] == -(-s // 64)
+    assert tatt._fwd_plan(b, s, h, causal=False).order == tuple(range(n_q))
+
+
+def test_flash_forward_plan_fills_the_card_at_serving_buckets():
+    """The engine's prefill buckets at Llama-3-8B's 32 heads: two 64-row
+    blocks run on each SM, so from S 1024 the grid fills the H100's 132
+    SMs twice over."""
+    for s, blocks in ((32, 32), (128, 64), (512, 256), (1024, 512),
+                      (2048, 1024)):
+        plan = tatt._fwd_plan(1, s, 32)
+        assert plan.blocks == blocks
+        assert (plan.blocks >= 2 * 132) == (s >= 1024)
 
 
 def test_flash_backward_plan_noncausal_keeps_order():
@@ -112,6 +170,89 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, sq, sk, d, causal):
     assert torch.allclose(lse, torch.logsumexp(s, dim=-1), atol=1e-3)
 
 
+def _check_fwd(q, k, v, causal):
+    """K1's o within a bf16 step of the plain version, every query row
+    within 1e-2 relative L2, and lse within 1e-3 of logsumexp."""
+    h = q.shape[2]
+    out, lse = tatt._flash_forward(q, k, v, causal)
+    ref = tatt._attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    diff = out.float() - ref.float()
+    assert diff.abs().max().item() <= 2e-2
+    row_rel = (torch.linalg.vector_norm(diff, dim=(2, 3))
+               / torch.linalg.vector_norm(ref.float(), dim=(2, 3)))
+    assert row_rel.max().item() <= 1e-2
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                      tatt._repeat_kv(k, h).float()) * q.shape[-1] ** -0.5
+    if causal:
+        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril(k.shape[1] - q.shape[1])
+        sc = sc.masked_fill(~mask, tatt.NEG_INF)
+    assert (lse - torch.logsumexp(sc, dim=-1)).abs().max().item() <= 1e-3
+    return out, lse
+
+
+def _rand_qkv(dev, b, sq, sk, h, kvh, d, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((b, s, n, d), generator=g, device=dev).bfloat16()
+                 for s, n in ((sq, h), (sk, kvh), (sk, kvh)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 7, 63, 64, 65, 127, 128, 129, 200, 2048])
+def test_flash_forward_llama_heads_on_card(cuda_device, s, d):
+    """H32 KVH8 at the serving buckets, ragged lengths and the training
+    length."""
+    _check_fwd(*_rand_qkv(cuda_device, 1, s, s, 32, 8, d), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2), (8, 1),
+                                   (16, 1)])  # GQA groups 1-16
+@pytest.mark.parametrize("sq,sk,causal", [(200, 200, True),
+                                          (70, 300, True),  # Sq < Sk
+                                          (130, 90, False)])
+def test_flash_forward_gqa_groups_on_card(cuda_device, h, kvh, sq, sk,
+                                         causal):
+    for d in (64, 128):
+        _check_fwd(*_rand_qkv(cuda_device, 2, sq, sk, h, kvh, d), causal)
+
+
+@pytest.mark.cuda
+def test_flash_forward_is_deterministic_on_card(cuda_device):
+    q, k, v = _rand_qkv(cuda_device, 1, 700, 700, 32, 8, 128, seed=3)
+    o1, l1 = tatt._flash_forward(q, k, v, True)
+    o2, l2 = tatt._flash_forward(q, k, v, True)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+def test_flash_forward_reads_fused_projection_on_card(cuda_device):
+    """q/k/v as strided slices of one fused [B, S, H + 2 KVH, D] tensor."""
+    qkv = torch.randn((1, 300, 32 + 8 + 8, 128),
+                      device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :32], qkv[:, :, 32:40], qkv[:, :, 40:]
+    assert not q.is_contiguous()
+    _check_fwd(q, k, v, True)
+
+
+@pytest.mark.cuda
+def test_flash_attention_grads_match_plain_on_card(cuda_device):
+    """Through _FlashAttention (K1, then K2/K3 from its o and lse) the
+    grads match autograd of the plain version."""
+    q, k, v = _rand_qkv(cuda_device, 1, 300, 300, 8, 2, 128, seed=4)
+    do = torch.randn_like(q)
+    grads = []
+    for fn in (tatt.flash_attention, tatt._attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, True).backward(do)
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert _rel_l2(got, ref).item() <= 2e-2
+
+
 @pytest.mark.cuda
 def test_flash_kernel_reads_strided_inputs(cuda_device):
     """q/k/v as views of one fused projection, as a model may pass."""
@@ -154,24 +295,70 @@ def test_kernel_launches_are_counted(cuda_device):
 @pytest.mark.parametrize("rows,d,dtype", [(1, 64, torch.float32),
                                           (37, 4096, torch.bfloat16)])
 def test_rms_kernel_matches_plain_on_card(cuda_device, rows, d, dtype):
-    x = torch.randn((rows, d), device=cuda_device).to(dtype)
-    w = torch.randn((d,), device=cuda_device).to(dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=g, device=cuda_device).to(dtype)
+    w = torch.randn((d,), generator=g, device=cuda_device).to(dtype)
     got = trms.rms_norm(x, w, 1e-5)
     ref = trms._rms_norm_reference(x, w, 1e-5)
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 64, 1000), (17, 4096, 512),
-                                   (8, 100, 40)])
-def test_int8_kernel_matches_plain_on_card(cuda_device, m, k, n):
-    w8, s = tqm.quantize_int8(torch.randn((k, n), device=cuda_device))
-    x = torch.randn((m, k), device=cuda_device).bfloat16()
+def _check_int8(x, w8, s):
     got = tqm.int8_matmul(x, w8, s)
     ref = tqm._int8_matmul_reference(x, w8, s)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
     rel = ((got.float() - ref.float()).abs().max()
            / ref.float().abs().max()).item()
     assert rel < 2e-2
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 1000), (17, 4096, 512), (8, 100, 40),
+    # every M boundary (decode 8 / 16 / 32 tokens, prefill 128) at K4096
+    # N4096
+    *[(m, 4096, 4096) for m in (1, 3, 8, 16, 17, 32, 33, 64, 512, 1024)],
+    # every N at decode, every K at both block shapes
+    *[(8, 4096, n) for n in (1000, 11008, 14336)],
+    *[(m, k, 1000) for m in (17, 33) for k in (64, 96, 4096, 14336)],
+    # the serving path's shapes
+    (8, 14336, 4096), (1024, 4096, 14336), (64, 14336, 11008),
+    (3, 96, 11008), (16, 64, 14336)])
+def test_int8_kernel_matches_plain_on_card(cuda_device, m, k, n):
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w8, s = tqm.quantize_int8(
+        torch.randn((k, n), generator=g, device=cuda_device))
+    x = torch.randn((m, k), generator=g, device=cuda_device).bfloat16()
+    _check_int8(x, w8, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (24, 512, 1000),
+                                   (100, 512, 1024)])
+def test_int8_kernel_reads_unaligned_bases_on_card(cuda_device, m, k, n):
+    """x and w8 as contiguous slices at offset 1: not 16-byte aligned, so
+    the kernel stages them by plain loads."""
+    w8, s = tqm.quantize_int8(torch.randn((k, n), device=cuda_device))
+    wbuf = torch.empty(k * n + 1, dtype=torch.int8, device=cuda_device)
+    wbuf[1:] = w8.reshape(-1)
+    xbuf = torch.randn(m * k + 1, device=cuda_device).bfloat16()
+    x, w8u = xbuf[1:].view(m, k), wbuf[1:].view(k, n)
+    assert x.data_ptr() % 16 and w8u.data_ptr() % 16 and w8u.is_contiguous()
+    _check_int8(x, w8u, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 14336, 4096), (3, 4096, 11008),
+                                   (32, 4096, 4096), (512, 4096, 1000)])
+def test_int8_kernel_is_deterministic_on_card(cuda_device, m, k, n):
+    """Bit-equal across calls: split-K partials are summed in split order
+    by a second launch, whichever block finishes first."""
+    w8, s = tqm.quantize_int8(torch.randn((k, n), device=cuda_device))
+    x = torch.randn((m, k), device=cuda_device).bfloat16()
+    first = tqm.int8_matmul(x, w8, s)
+    for _ in range(3):
+        assert torch.equal(tqm.int8_matmul(x, w8, s), first)
 
 
 def _rel_l2(got, ref, dim=None):

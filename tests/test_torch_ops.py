@@ -134,6 +134,40 @@ def test_flash_attention_matches_jax_kernel(sq, sk):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-2)
 
 
+def _jax_forward_lse(q, k, v, causal):
+    """The Pallas forward's lse [B, H, Sq] (interpret mode) for numpy
+    q [B, Sq, H, D] and k/v with as many heads."""
+    prev = jatt._INTERPRET
+    jatt._INTERPRET = True
+    try:
+        jq, jk, jv = (jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v))
+        plan = jatt._kernel_plan(jnp.asarray(q), jnp.asarray(k))
+        assert plan is not None  # the Pallas kernel
+        _, lse = jatt._flash_forward(jq, jk, jv, causal, *plan)
+    finally:
+        jatt._INTERPRET = prev
+    return np.asarray(lse)[..., 0]
+
+
+@pytest.mark.parametrize("sq,sk,kvh", [(256, 256, 2), (256, 512, 2),
+                                       (256, 256, 1)])  # GQA: 2 heads, 1 KV
+def test_flash_forward_lse_matches_jax_kernel(sq, sk, kvh):
+    """K1's logsumexp (natural log, [B, H, Sq] f32) is the contract with
+    K2/K3: its plain version against the Pallas forward's lse, with K/V
+    repeated over each GQA group (jnp.repeat) on the JAX side."""
+    rng = _rng(5)
+    q = rng.standard_normal((1, sq, 2, 128)).astype(np.float32)
+    k = rng.standard_normal((1, sk, kvh, 128)).astype(np.float32)
+    v = rng.standard_normal((1, sk, kvh, 128)).astype(np.float32)
+    want = _jax_forward_lse(q, *(np.repeat(a, 2 // kvh, axis=2)
+                                 for a in (k, v)), True)
+    _, lse = tatt._flash_forward_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), True)
+    assert tuple(lse.shape) == (1, 2, sq) and lse.dtype == torch.float32
+    # f32 on both sides; only the order of the online-softmax sums differs
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-4)
+
+
 def test_flash_attention_gqa_equals_repeated_kv():
     rng = _rng(3)
     q = torch.from_numpy(rng.standard_normal((2, 12, 4, 16)).astype(
