@@ -337,28 +337,52 @@ def check_whole_backward(args, library, library_op, nbytes, flops):
 
 
 def check_rms_norm(dev, gen):
+    """K4 at the decode, prefill-bucket and training row counts (bf16, d
+    4096; the 8-row row is the headline), timed beside ``F.rms_norm``
+    and ``floor_ms``, the device time of one graph node (a 1-element
+    ``fill_``): the 8-row bytes bound is below any launch. Then f32,
+    fp16, a ragged width (the masked scalar path) and d 16384, for
+    correctness only."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import rmsnorm
     d, eps = 4096, 1e-5
-    rows = []
-    for n in (8, 512, 2048):
-        x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
-        w = (1 + 0.1 * torch.randn((d,), generator=gen,
-                                   device=dev)).bfloat16()
+    one = torch.zeros(1, device=dev)
+    floor = graph_ms([functools.partial(one.fill_, 1.0)])
+
+    def inputs(n, dd, dtype):
+        x = torch.randn((n, dd), generator=gen, device=dev).to(dtype)
+        w = (1 + 0.1 * torch.randn((dd,), generator=gen,
+                                   device=dev)).to(dtype)
         out = rmsnorm.rms_norm(x, w, eps)
         ref = rmsnorm._rms_norm_reference(x, w, eps)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        check(err <= 2e-2, f"K4 rows={n}: max abs err {err} > 2e-2")
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        check(bool(torch.isfinite(out).all()) and out.shape == x.shape,
+              f"K4 {n}x{dd} {dtype}: non-finite or misshapen")
+        check(err <= tol, f"K4 {n}x{dd} {dtype}: max abs err {err} > {tol}")
+        return x, w, err
+
+    rows = []
+    for n in (8, 512, 1024, 2048):
+        x, w, err = inputs(n, d, torch.bfloat16)
         bms, by = bound_ms(2 * (2 * n * d + d), 4.0 * n * d, F32_FLOPS)
         rows.append(dict(
-            shape=[n, d], max_abs_err=err,
+            shape=[n, d], dtype="bfloat16", max_abs_err=err,
             ms=time_ms(rmsnorm.rms_norm, x, w, eps),
             call_ms=call_ms(lambda: rmsnorm.rms_norm(x, w, eps)),
             plain_ms=time_ms(rmsnorm._rms_norm_reference, x, w, eps),
             library_ms=time_ms(F.rms_norm, x, (d,), w, eps),
-            bound_ms=bms, bound_by=by))
+            library_call_ms=call_ms(lambda: F.rms_norm(x, (d,), w, eps)),
+            floor_ms=floor, bound_ms=bms, bound_by=by))
+        emit("kernel_check", kernel="rms_norm", **rows[-1])
+    for n, dd, dtype in ((8, d, torch.float32), (8, d, torch.float16),
+                         (5, 4100, torch.bfloat16),
+                         (8, 16384, torch.bfloat16)):
+        _, _, err = inputs(n, dd, dtype)
+        rows.append(dict(shape=[n, dd], dtype=str(dtype)[6:],
+                         max_abs_err=err))
         emit("kernel_check", kernel="rms_norm", **rows[-1])
     return rows
 

@@ -34,8 +34,10 @@ _I = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points and their argument types (see ops/csrc/*.cu).
 _SIGNATURES: Dict[str, List] = {
-    # x, w, out, rows, d, eps, is_bf16, stream
-    "rt_rms_norm": [_P, _P, _P, _I, _I, _F, ctypes.c_int, _P],
+    # x, w, out, rows, d, eps, dtype (0 f32, 1 bf16, 2 fp16), the launch
+    # plan (threads per row, slots per thread, vector path, chunks),
+    # stream
+    "rt_rms_norm": [_P, _P, _P, _I, _I, _F] + [ctypes.c_int] * 5 + [_P],
     # q, k, v, o, lse, B, H, KVH, Sq, Sk, D, q strides (b, s, h),
     # k strides, v strides, causal, sm_scale, the launch plan (blocks,
     # first query tile, tile step), stream
@@ -161,9 +163,12 @@ def check(rc: int, name: str) -> None:
 
 def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, which must be the current
-    CUDA device (the C entries launch there)."""
+    CUDA device (the C entries launch there). Reads the raw handle
+    without building a ``torch.cuda.Stream`` (a few microseconds a
+    call)."""
     import torch
-    if device.index is not None and device.index != torch.cuda.current_device():
+    current = torch._C._cuda_getDevice()
+    if device.index is not None and device.index != current:
         raise ValueError(f"tensor on {device} but the current CUDA device "
-                         f"is {torch.cuda.current_device()}")
-    return torch.cuda.current_stream(device).cuda_stream
+                         f"is {current}")
+    return torch._C._cuda_getCurrentRawStream(current)

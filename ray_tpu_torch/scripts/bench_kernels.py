@@ -1,12 +1,22 @@
-"""Times K1 and K5 at the serving and training paths' shapes.
+"""Times K1, K4 and K5 at the serving and training paths' shapes.
 
-    python -m ray_tpu_torch.scripts.bench_kernels [--tag NAME] [--only k1|k5]
+    python -m ray_tpu_torch.scripts.bench_kernels [--tag NAME]
+        [--only k1|k4|k5]
 
 Run from the root of a checkout (it uses ``chip_smoke.py``'s cold-L2
 CUDA-graph timer, call timer and bounds). K1 (``flash_attention``, B1
 H32 KVH8 D128, causal) is timed at S 128, 512, 1024 and 2048 beside
 SDPA's forward; K5 (``int8_matmul``) at the FFN shapes of decode and
-prefill, beside its bytes or operations bound. Each row is checked
+prefill, beside its bytes or operations bound; K4 (``rms_norm``) at
+8-2048 rows of 4096 in bf16 beside ``F.rms_norm`` (device time and call
+time), its bytes bound and ``floor_ms``, the device time of one graph
+node (a 1-element ``fill_``), with a host-side breakdown of the 8-row
+call: the host clock per call and a cProfile of the wrapper. Each row
+also times K4 and ``F.rms_norm`` behind the residual add that precedes
+them in the model (``after_add_ms``, beside the add's own ``add_ms``).
+In a tree with this K4 (its C entry and plan), K4 is also timed under
+the other plans of K4_SWEEP and its host time is taken apart (a parent
+tree skips both). Each row is checked
 against the plain version and printed as one JSON line tagged with
 ``--tag``, so that two trees (say a parent and a change) can be run in
 turns within one call and compared. Needs a CUDA GPU.
@@ -15,11 +25,19 @@ turns within one call and compared. Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import cProfile
+import functools
 import json
 import os
+import pstats
 import sys
+import time
 
 K1_SEQS = (128, 512, 1024, 2048)
+K4_ROWS = (8, 32, 128, 512, 1024, 2048)
+# K4 plans timed beside the chosen one at d 4096 in bf16: (threads per
+# row, slots per thread)
+K4_SWEEP = ((512, 1), (256, 2), (128, 4))
 K5_SHAPES = ((8, 4096, 14336), (8, 14336, 4096), (3, 4096, 11008),
              (16, 4096, 14336), (32, 4096, 14336), (32, 14336, 4096),
              (64, 4096, 14336), (512, 4096, 14336), (512, 14336, 4096),
@@ -46,6 +64,140 @@ def bench_k1(cs, dev, gen, emit):
             qt, kt, vt))
 
 
+def host_us(fn, iters: int = 2000) -> float:
+    """Host time of one call, launch included (the device keeps up:
+    nothing waits on it inside the loop)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return t * 1e6
+
+
+def profile_us(fn, iters: int = 2000, top: int = 10):
+    """cProfile of ``iters`` calls: the functions with the most own
+    time, in us per call (cProfile's own cost inflates each)."""
+    import torch
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(iters):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[2], f"{os.path.basename(k[0])}:{k[1]}({k[2]})")
+                   for k, v in stats.items()), reverse=True)[:top]
+    return [[name, t / iters * 1e6] for t, name in rows]
+
+
+def bench_k4(cs, dev, gen, emit):
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import rmsnorm
+    d, eps = 4096, 1e-5
+    one = torch.zeros(1, device=dev)
+    floor = cs.graph_ms([functools.partial(one.fill_, 1.0)])
+    this_k4 = hasattr(rmsnorm, "_rt_rms_norm")
+    for n in K4_ROWS:
+        x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+        w = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                   device=dev)).bfloat16()
+        out = rmsnorm.rms_norm(x, w, eps)
+        ref = rmsnorm._rms_norm_reference(x, w, eps)
+        torch.cuda.synchronize()
+        bms, by = cs.bound_ms(2 * (2 * n * d + d), 4.0 * n * d, cs.F32_FLOPS)
+        r = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+        emit(kernel="K4", shape=[n, d],
+             max_abs_err=(out.float() - ref.float()).abs().max().item(),
+             ms=cs.time_ms(rmsnorm.rms_norm, x, w, eps),
+             add_ms=cs.time_ms(torch.add, x, r),
+             after_add_ms=cs.time_ms(
+                 lambda x, r, w: rmsnorm.rms_norm(torch.add(x, r), w, eps),
+                 x, r, w),
+             library_after_add_ms=cs.time_ms(
+                 lambda x, r, w: F.rms_norm(torch.add(x, r), (d,), w, eps),
+                 x, r, w),
+             call_ms=cs.call_ms(lambda: rmsnorm.rms_norm(x, w, eps)),
+             library_ms=cs.time_ms(F.rms_norm, x, (d,), w, eps),
+             library_call_ms=cs.call_ms(lambda: F.rms_norm(x, (d,), w, eps)),
+             bound_ms=bms, bound_by=by, floor_ms=floor)
+        if n == K4_ROWS[0]:
+            emit(kernel="K4_host", shape=[n, d],
+                 call_us=host_us(lambda: rmsnorm.rms_norm(x, w, eps)),
+                 library_call_us=host_us(lambda: F.rms_norm(x, (d,), w, eps)),
+                 empty_like_us=host_us(lambda: torch.empty_like(x)),
+                 profile_us=profile_us(lambda: rmsnorm.rms_norm(x, w, eps)))
+            if this_k4:
+                host_split(emit, x, w, eps)
+        if this_k4:
+            sweep_k4(cs, emit, x, w, eps)
+
+
+def sweep_k4(cs, emit, x, w, eps):
+    """K4 under each plan of K4_SWEEP, launched through this tree's C
+    entry, beside the plan rmsnorm._rms_plan picks."""
+    import torch
+    from ray_tpu_torch.ops import _build, rmsnorm
+    n, d = x.shape
+    entry = rmsnorm._rt_rms_norm()
+
+    def run(threads, vecs, x, w, out):
+        rc = entry(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d, eps, 1,
+                   threads, vecs, 1, 1, _build.stream_ptr(x.device))
+        _build.check(rc, "rt_rms_norm")
+
+    def after_add(threads, vecs, x, r, w, out):
+        run(threads, vecs, torch.add(x, r), w, out)
+
+    plan = rmsnorm._rms_plan(d, x.dtype, True)
+    r = torch.randn_like(x)
+    add_ms = cs.time_ms(torch.add, x, r)
+    for threads, vecs in K4_SWEEP:
+        out = torch.empty_like(x)
+        run(threads, vecs, x, w, out)
+        ref = rmsnorm._rms_norm_reference(x, w, eps)
+        torch.cuda.synchronize()
+        emit(kernel="K4_plan", shape=[n, d], plan=[threads, vecs],
+             chosen=(threads, vecs) == (plan.threads, plan.vecs),
+             max_abs_err=(out.float() - ref.float()).abs().max().item(),
+             ms=cs.time_ms(functools.partial(run, threads, vecs), x, w, out),
+             after_add_ms=cs.time_ms(
+                 functools.partial(after_add, threads, vecs), x, r, w, out),
+             add_ms=add_ms)
+
+
+def host_split(emit, x, w, eps):
+    """The 8-row call's host time taken apart, for this tree's wrapper:
+    the C entry alone with rows 0 (ctypes, no launch) and with the
+    launch, and the wrapper with the C entry replaced by a no-op."""
+    import torch
+    from ray_tpu_torch.ops import _build, rmsnorm
+    n, d = x.shape
+    entry = rmsnorm._rt_rms_norm()
+    out = torch.empty_like(x)
+    plan = rmsnorm._rms_plan(d, x.dtype, True)
+    stream = _build.stream_ptr(x.device)
+    args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d, eps, 1,
+            plan.threads, plan.vecs, 1, plan.chunks, stream]
+    ctypes_only = host_us(lambda: entry(*args[:3], 0, *args[4:]))
+    with_launch = host_us(lambda: entry(*args))
+    rmsnorm._entry = lambda *a: 0
+    try:
+        wrapper_only = host_us(lambda: rmsnorm.rms_norm(x, w, eps))
+    finally:
+        rmsnorm._entry = entry
+    emit(kernel="K4_host_split", shape=[n, d], ctypes_us=ctypes_only,
+         ctypes_launch_us=with_launch, wrapper_no_launch_us=wrapper_only,
+         stream_ptr_us=host_us(lambda: _build.stream_ptr(x.device)),
+         current_stream_us=host_us(
+             lambda: torch.cuda.current_stream(x.device).cuda_stream))
+
+
 def bench_k5(cs, dev, gen, emit):
     import torch
     from ray_tpu_torch.ops import quant_matmul as qm
@@ -68,7 +220,7 @@ def bench_k5(cs, dev, gen, emit):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--only", choices=("k1", "k5"), default=None)
+    ap.add_argument("--only", choices=("k1", "k4", "k5"), default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -85,6 +237,8 @@ def main() -> int:
 
     if args.only in (None, "k1"):
         bench_k1(cs, dev, gen, emit)
+    if args.only in (None, "k4"):
+        bench_k4(cs, dev, gen, emit)
     if args.only in (None, "k5"):
         bench_k5(cs, dev, gen, emit)
     return 0

@@ -272,9 +272,16 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(cuda_device):
     q64 = torch.randn((1, 8, 2, 64), device=cuda_device)
     with pytest.raises(TypeError):
         tatt.flash_attention(q64, q64, q64)
-    with pytest.raises(ValueError, match="d % 8"):
-        trms.rms_norm(torch.randn((2, 12), device=cuda_device),
-                      torch.ones(12, device=cuda_device))
+    # K4 takes any width (d 12: the masked scalar path) but no int type
+    x12 = torch.randn((2, 12), device=cuda_device)
+    w12 = torch.randn(12, device=cuda_device)
+    got = trms.rms_norm(x12, w12)
+    assert (got - trms._rms_norm_reference(x12, w12, 1e-6)).abs().max() \
+        <= 1e-4
+    with pytest.raises(TypeError):
+        trms.rms_norm(torch.ones((2, 12), dtype=torch.int32,
+                                 device=cuda_device),
+                      torch.ones(12, dtype=torch.int32, device=cuda_device))
     w8, s = tqm.quantize_int8(torch.randn((64, 32), device=cuda_device))
     with pytest.raises(TypeError):
         tqm.int8_matmul(torch.randn((2, 64), device=cuda_device), w8, s)
@@ -291,16 +298,62 @@ def test_kernel_launches_are_counted(cuda_device):
     assert (tatt.flash_attention.launches, trms.rms_norm.launches) == (1, 1)
 
 
+def _check_rms(x, w):
+    got = trms.rms_norm(x, w, 1e-5)
+    ref = trms._rms_norm_reference(x, w, 1e-5)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    # f32: the order of the sum and rsqrtf; 16 bits: one output rounding
+    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype", [(1, 64, torch.float32),
-                                          (37, 4096, torch.bfloat16)])
+@pytest.mark.parametrize("rows,d,dtype", [
+    (1, 64, torch.float32), (8, 4096, torch.bfloat16),
+    (37, 4096, torch.bfloat16), (2048, 4096, torch.bfloat16),
+    (3, 12, torch.float32), (5, 4100, torch.bfloat16),
+    (4, 4096, torch.float16), (8, 16384, torch.bfloat16),
+    # rows past 2048 slots: the chunked path, vector and scalar
+    (3, 40000, torch.float32), (2, 70001, torch.bfloat16)])
 def test_rms_kernel_matches_plain_on_card(cuda_device, rows, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(rows + d)
     x = torch.randn((rows, d), generator=g, device=cuda_device).to(dtype)
     w = torch.randn((d,), generator=g, device=cuda_device).to(dtype)
-    got = trms.rms_norm(x, w, 1e-5)
-    ref = trms._rms_norm_reference(x, w, 1e-5)
-    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    _check_rms(x, w)
+
+
+@pytest.mark.cuda
+def test_rms_kernel_reads_unaligned_rows(cuda_device):
+    """x sliced one element into a buffer: not 16-byte aligned, so the
+    plan takes the masked scalar path."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    buf = torch.randn((8 * 4096 + 1,), generator=g,
+                      device=cuda_device).bfloat16()
+    x = buf[1:].view(8, 4096)
+    assert x.data_ptr() % 16
+    w = torch.randn((4096,), generator=g, device=cuda_device).bfloat16()
+    _check_rms(x, w)
+
+
+@pytest.mark.cuda
+def test_rms_kernel_refuses_a_plan_that_misses_columns(cuda_device):
+    x = torch.randn((2, 4096), device=cuda_device).bfloat16()
+    w = torch.ones(4096, device=cuda_device).bfloat16()
+    out = torch.empty_like(x)
+    plan = trms._rms_plan(4096, torch.bfloat16, True)
+    entry = trms._rt_rms_norm()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(threads, vecs, chunks):
+        return entry(x.data_ptr(), w.data_ptr(), out.data_ptr(), 2, 4096,
+                     1e-5, 1, threads, vecs, 1, chunks, stream)
+
+    assert launch(plan.threads, plan.vecs, plan.chunks) == 0
+    assert launch(plan.threads // 2, plan.vecs, 1) != 0     # half a row
+    assert launch(plan.threads, plan.vecs, 2) != 0          # empty chunk
+    assert launch(48, 11, 1) != 0                          # no such plan
+    assert launch(1024, 1, 1) != 0                         # > 512 threads
+    torch.cuda.synchronize()
 
 
 def _check_int8(x, w8, s):
