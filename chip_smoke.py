@@ -12,18 +12,29 @@ call from Python, its plain version's time, the time of one PyTorch
 call for the same function where there is one, and its bound,
 (4) ``ContinuousBatchingEngine`` serving Llama-3-8B at full width and
 depth in bf16 from random seeded weights, (5) the same engine with int8
-FFN weights, (6) a 2-layer full-width prefill on the card against the
-plain f32 version on the CPU, (7) training Llama-3-8B at full width and
-depth (loss, backward, fused AdamW; remat and chunked cross-entropy) for
-a warm-up and three timed steps on one fixed batch, (8) a 2-layer
-full-width loss and its grads on the card against the plain f32
-version on the CPU, (9) the kernel list. The backward is also timed whole, as the model
-calls it (delta, K2, K3 and K3's group sum), against SDPA's backward. Every kernel's launch count is
-zeroed just before each engine phase and each training step and read
-just after; a kernel of the path that never launched fails the run, and
-a training step must launch exactly K1 2L, K2 L, K3 L, K4 4L + 1 and K5
-0 times. The last line is the device summary; any failed check exits
-non-zero before it.
+FFN weights, then the engine's scheduling features on the same weights
+(one set, built once): multi-LoRA (``engine_lora``), multi-step decode
+(``engine_multi_step``), speculative decoding with the target as its
+own draft (``engine_spec``), prefix caching (``engine_prefix``) and
+chunked prefill in int8 (``engine_chunked``), with exact stream gates
+where the arithmetic allows them; the verify step, a LoRA bank decode
+and a suffix prefill against decode and prefill on a 2-layer model
+(``features_vs_decode``); and every feature of the tiny f32 config on
+the card and the CPU, int8 included (``features_tiny_f32``). Then (6) a
+2-layer full-width prefill on the card against the plain f32 version on
+the CPU, (7) training Llama-3-8B at full width and depth (loss,
+backward, fused AdamW; remat and chunked cross-entropy) for a warm-up
+and three timed steps on one fixed batch, (8) a 2-layer full-width loss
+and its grads on the card against the plain f32 version on the CPU,
+(9) the kernel list, with each kernel's launches summed over phases
+4-8. The backward is also timed whole, as the model calls it (delta,
+K2, K3 and K3's group sum), against SDPA's backward. Every kernel's
+launch count is zeroed just before each engine phase, each feature
+phase and each training step and read just after; a kernel of the path
+that never launched fails the run, and a training step must launch
+exactly K1 2L, K2 L, K3 L, K4 4L + 1 and K5 0 times. Each feature phase
+prints its seconds. The last line is the device summary; any failed check
+exits non-zero before it.
 
 Needs a CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); without a GPU,
 or without the ``ray_tpu_torch`` package beside it, it exits non-zero
@@ -473,7 +484,10 @@ class FirstTokenClock:
             self.ttft = time.perf_counter() - self.t_start
 
 
-def run_engine(dev, quantization, prompts):
+def run_engine(dev, quantization, prompts, params):
+    """The engine on ``params`` (the shared Llama-3-8B bf16 weights;
+    ``init_s`` is the engine's own set-up: int8 quantization and the
+    caches)."""
     import torch
     from ray_tpu_torch.llm import (
         ContinuousBatchingEngine, EngineConfig, GenerationRequest)
@@ -482,7 +496,8 @@ def run_engine(dev, quantization, prompts):
     t0 = time.perf_counter()
     engine = ContinuousBatchingEngine(
         EngineConfig(model=cfg, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-                     seed=SEED, quantization=quantization), device=dev)
+                     seed=SEED, quantization=quantization), params=params,
+        device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
 
@@ -533,6 +548,422 @@ def run_engine(dev, quantization, prompts):
 
 
 # ---------------------------------------------------------------------------
+# the engine's scheduling features at full Llama-3-8B width and depth
+# ---------------------------------------------------------------------------
+
+def full_config():
+    """The served model: Llama-3-8B at full width and depth."""
+    from ray_tpu_torch.models import LlamaConfig
+    return LlamaConfig.llama3_8b()
+
+
+def run_phase(name, required, fn, *args):
+    """One phase: every launch count zeroed just before ``fn(*args)`` and
+    read just after; a kernel in ``required`` that never launched fails
+    the run. Emits the phase's fields, seconds and launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    fields = fn(*args)
+    counts = read_counts()
+    for kname in required:
+        check(counts[kname] > 0, f"{name}: {kname} never launched: {counts}")
+    emit(name, seconds=time.perf_counter() - t0, launches=counts, **fields)
+    return counts
+
+
+def serve(engine, specs):
+    """Serve requests built from dicts, all admitted at once; returns
+    them finished."""
+    from ray_tpu_torch.llm import GenerationRequest
+    requests = [engine.add_request(GenerationRequest(**spec))
+                for spec in specs]
+    while any(not r.done for r in requests):
+        engine.step()
+    return requests
+
+
+def agreement(a, b):
+    """Share of positions where two token streams agree."""
+    return sum(x == y for x, y in zip(a, b)) / max(len(a), len(b), 1)
+
+
+def with_random_b(lora, seed, std):
+    """A LoRA adapter whose B factors are N(0, std^2) from ``seed`` (a
+    fresh adapter, B = 0, is the identity)."""
+    import torch
+    gen = torch.Generator(device=lora["B_q"].device)
+    gen.manual_seed(seed)
+    out = dict(lora)
+    for part in ("B_q", "B_v"):
+        out[part] = (torch.randn(lora[part].shape, generator=gen,
+                                 device=lora[part].device) * std).to(
+                                     lora[part].dtype)
+    return out
+
+
+def make_engine(dev, params, **kw):
+    from ray_tpu_torch.llm import ContinuousBatchingEngine, EngineConfig
+    draft_params = kw.pop("draft_params", None)
+    return ContinuousBatchingEngine(
+        EngineConfig(model=full_config(), max_batch=MAX_BATCH,
+                     max_seq=MAX_SEQ, seed=SEED, **kw),
+        params=params, draft_params=draft_params, device=dev)
+
+
+def free():
+    """Give the memory of the tensors just dropped back to the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_lora(dev, params):
+    """Base, two adapters of rank 8 and 16 (random B) and a fresh one in
+    ONE batch on one 300-token prompt; then each request alone."""
+    from ray_tpu_torch.models import lora_init
+    cfg = full_config()
+    engine = make_engine(dev, params, max_loras=3, lora_rank=16)
+    engine.register_adapter("ada", with_random_b(
+        lora_init(SEED + 1, cfg, rank=8, device=dev), SEED + 2, 0.05))
+    engine.register_adapter("bob", with_random_b(
+        lora_init(SEED + 3, cfg, rank=16, device=dev), SEED + 4, 0.05))
+    engine.register_adapter("zero", lora_init(SEED + 5, cfg, rank=16,
+                                              device=dev))
+    prompt = __import__("numpy").random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, 300).tolist()
+    specs = [dict(prompt_ids=list(prompt), max_tokens=NEW_TOKENS,
+                  adapter=a) for a in (None, "ada", "bob", "zero")]
+    mixed = [r.output_ids for r in serve(engine, specs)]
+    alone = [serve(engine, [spec])[0].output_ids for spec in specs]
+    del engine
+    free()
+    base, ada, bob, zero = mixed
+    check(all(len(o) == NEW_TOKENS for o in mixed), "a LoRA request did "
+          f"not finish with its tokens: {[len(o) for o in mixed]}")
+    check(zero == base, "the fresh adapter's stream differs from base")
+    check(mixed == alone, "a stream of the mixed batch differs from the "
+          "same request served alone")
+    check(ada != base and bob != base, "an adapter's stream equals base")
+    return dict(heads=[o[:4] for o in mixed],
+                agreement_with_base=[agreement(o, base) for o in mixed])
+
+
+def engine_multi_step(dev, params, prompts, outs_bf16, bf16):
+    """multi_step=4 on phase 4's prompts: the same greedy streams, with
+    one crossing to the host per four decode steps."""
+    engine = make_engine(dev, params, multi_step=4)
+    specs = [dict(prompt_ids=list(p), max_tokens=NEW_TOKENS)
+             for p in prompts]
+    from ray_tpu_torch.llm import GenerationRequest
+    requests = [engine.add_request(GenerationRequest(**s)) for s in specs]
+    engine.step()  # admits every request, then one 4-step burst
+    t_admitted, emitted = time.perf_counter(), engine.total_generated
+    while engine.has_work():
+        engine.step()
+    t_end = time.perf_counter()
+    outs = [r.output_ids for r in requests]
+    decode_tokens = engine.total_generated - emitted
+    del engine
+    free()
+    check(outs == outs_bf16, "multi-step greedy streams differ from the "
+          "single-step ones")
+    return dict(ms_per_token=(t_end - t_admitted) / decode_tokens * 1e3,
+                single_step_ms_per_token=1e3 / bf16["decode_tokens_per_s"],
+                note="host clock, information only")
+
+
+def engine_spec(dev, params, prompts, outs_bf16):
+    """draft_model = the target (the same tensors, a second cache),
+    spec_tokens=4, on phase 4's prompts."""
+    engine = make_engine(dev, params, draft_model=full_config(),
+                         draft_params=params, spec_tokens=4)
+    requests = serve(engine, [dict(prompt_ids=list(p), max_tokens=NEW_TOKENS)
+                              for p in prompts])
+    stats = engine.stats()
+    forwards = engine._step_counter - len(prompts)  # less the prefills
+    del engine
+    free()
+    check(all(r.finish_reason == "length"
+              and len(r.output_ids) == NEW_TOKENS for r in requests),
+          "a speculative request did not finish with its tokens")
+    # a request's decode tokens over every target forward of the run, in
+    # some of which it had already finished: a lower bound per request
+    per_forward = (NEW_TOKENS - 1) / forwards
+    check(per_forward > 1.0, f"{per_forward} tokens per target forward: "
+          "no draft was ever accepted")
+    return dict(tokens_per_target_forward=per_forward,
+                target_forwards=forwards,
+                acceptance=stats["spec_accepted"] / stats["spec_proposed"],
+                agreement_with_dense=[agreement(r.output_ids, o) for r, o
+                                      in zip(requests, outs_bf16)])
+
+
+def engine_prefix(dev, params):
+    """A 512-token system prompt, each time followed by another 64-token
+    suffix, served one request after another, with and without the
+    prefix cache."""
+    import numpy as np
+    vocab = full_config().vocab_size
+    rng = np.random.default_rng(SEED + 7)
+    system = rng.integers(0, vocab, 512).tolist()
+    prompts = [system + rng.integers(0, vocab, 64).tolist()
+               for _ in range(3)]
+    outs = {}
+    for cached in (True, False):
+        engine = make_engine(dev, params, enable_prefix_caching=cached,
+                             prefix_cache_min_tokens=8)
+        outs[cached] = [serve(engine, [dict(prompt_ids=list(p),
+                                            max_tokens=NEW_TOKENS)])[0]
+                        for p in prompts]
+        if cached:
+            stats = engine.stats()
+        del engine
+        free()
+    check(all(r.finish_reason == "length" for r in outs[True]),
+          "a prefix-cached request did not finish")
+    check(stats["prefix_hits"] >= 2, f"prefix cache stats {stats}")
+    return dict(prefix_hits=stats["prefix_hits"],
+                prefix_misses=stats["prefix_misses"],
+                first_token_agrees=[a.output_ids[0] == b.output_ids[0]
+                                    for a, b in zip(outs[True], outs[False])],
+                agreement_with_no_cache=[
+                    agreement(a.output_ids, b.output_ids)
+                    for a, b in zip(outs[True], outs[False])])
+
+
+def engine_chunked(dev, params, prompts, outs_int8):
+    """int8, chunked_prefill_tokens=128: the four prompts join while one
+    request is decoding. Each chunk step must launch K5 on the verify
+    step's 8 x 128-row products, three per layer."""
+    from ray_tpu_torch.llm import GenerationRequest
+    from ray_tpu_torch.ops import int8_matmul
+    engine = make_engine(dev, params, quantization="int8",
+                         chunked_prefill_tokens=128)
+    chunk_launches = []
+    chunk_step = engine._prefill_chunk_step
+
+    def counted(*args):
+        before = int8_matmul.launches
+        chunk_step(*args)
+        chunk_launches.append(int8_matmul.launches - before)
+
+    engine._prefill_chunk_step = counted
+    first = engine.add_request(GenerationRequest(
+        prompt_ids=list(range(1, 65)), max_tokens=NEW_TOKENS))
+    while not first.output_ids:
+        engine.step()
+    joined = [engine.add_request(GenerationRequest(
+        prompt_ids=list(p), max_tokens=NEW_TOKENS)) for p in prompts]
+    first_during = len(first.output_ids)
+    while engine.has_work():
+        engine.step()
+    del engine, chunk_step
+    free()
+    requests = [first] + joined
+    check(all(r.finish_reason == "length"
+              and len(r.output_ids) == NEW_TOKENS for r in requests),
+          "a chunked-prefill request did not finish with its tokens")
+    n_layers = full_config().n_layers
+    check(chunk_launches and all(n == 3 * n_layers for n in chunk_launches),
+          f"K5 launches per chunk step {chunk_launches}")
+    return dict(chunk_steps=len(chunk_launches),
+                k5_per_chunk_step=3 * n_layers,
+                decoding_tokens_before_join=first_during,
+                agreement_with_blocking=[agreement(r.output_ids, o) for r, o
+                                         in zip(joined, outs_int8)])
+
+
+def rel_l2_of(a, b):
+    import torch
+    a, b = a.float(), b.float()
+    return (torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b)).item()
+
+
+def features_vs_decode(dev):
+    """2 layers at full width, bf16, on the card: the verify step against
+    four decode steps, a LoRA bank decode against a LoRA prefill, and a
+    suffix prefill over a cached prefix against a full prefill."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import (
+        llama_decode_step, llama_init, llama_init_cache, llama_prefill,
+        llama_verify_step, lora_init)
+    cfg = dataclasses.replace(full_config(), n_layers=2)
+    params = llama_init(SEED, cfg, dev)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, 320)).to(dev)
+
+    def seated(n, rows=512):
+        _, ks, vs = llama_prefill(params, ids[None, :n], cfg)
+        ck, cv = llama_init_cache(cfg, 1, rows, dev)
+        ck[:, :, :n] = ks
+        cv[:, :, :n] = vs
+        return ck, cv
+
+    ck, cv = seated(300)
+    verify, _, _ = llama_verify_step(params, ids[None, 300:304], ck, cv,
+                                     torch.tensor([300], device=dev), cfg)
+    ck, cv = seated(300)
+    decode = torch.stack([llama_decode_step(
+        params, ids[300 + i:301 + i], ck, cv,
+        torch.tensor([300 + i], device=dev), cfg)[0][0] for i in range(4)])
+    rel_verify = rel_l2_of(verify[0], decode)
+
+    lora = with_random_b(lora_init(SEED + 1, cfg, rank=16, device=dev),
+                         SEED + 2, 0.05)
+    full, _, _ = llama_prefill(params, ids[None, :301], cfg, lora=lora)
+    _, ks, vs = llama_prefill(params, ids[None, :300], cfg, lora=lora)
+    ck, cv = llama_init_cache(cfg, 1, 512, dev)
+    ck[:, :, :300] = ks
+    cv[:, :, :300] = vs
+    bank = {part: torch.stack([torch.zeros_like(lora[part]), lora[part]])
+            for part in ("A_q", "A_v")}
+    for part in ("B_q", "B_v"):
+        folded = lora[part] * float(lora["scale"])
+        bank[part] = torch.stack([torch.zeros_like(folded), folded])
+    bank["scale"] = torch.tensor(1.0, dtype=cfg.dtype, device=dev)
+    bank_decode, _, _ = llama_decode_step(
+        params, ids[300:301], ck, cv, torch.tensor([300], device=dev), cfg,
+        lora_bank=bank, lora_idx=torch.tensor([1], device=dev))
+    rel_lora = rel_l2_of(bank_decode[0], full[0, 300])
+    no_lora, _, _ = llama_prefill(params, ids[None, :301], cfg)
+
+    _, pks, pvs = llama_prefill(params, ids[None, :256], cfg)
+    base_k = torch.zeros((2, 1, 512) + tuple(pks.shape[3:]),
+                         dtype=pks.dtype, device=dev)
+    base_v = torch.zeros_like(base_k)
+    base_k[:, :, :256] = pks
+    base_v[:, :, :256] = pvs
+    suffix, _, _ = llama_verify_step(params, ids[None, 256:320], base_k,
+                                     base_v, torch.tensor([256], device=dev),
+                                     cfg)
+    whole, _, _ = llama_prefill(params, ids[None, :320], cfg)
+    rel_suffix = rel_l2_of(suffix[0, -1], whole[0, 319])
+    del params
+    free()
+    for what, rel in (("verify step vs decode steps", rel_verify),
+                      ("LoRA bank decode vs LoRA prefill", rel_lora),
+                      ("suffix prefill vs full prefill", rel_suffix)):
+        check(rel <= 5e-2, f"{what}: relative L2 {rel} > 5e-2")
+    return dict(rel_l2_verify_vs_decode=rel_verify,
+                rel_l2_bank_decode_vs_lora_prefill=rel_lora,
+                rel_l2_lora_vs_base=rel_l2_of(full[0, 300], no_lora[0, 300]),
+                rel_l2_suffix_vs_full_prefill=rel_suffix)
+
+
+def features_tiny_f32(dev):
+    """LlamaConfig.tiny() (f32, reference attention) on the card and on
+    the CPU: every feature's greedy streams equal the port's CPU streams,
+    and those that keep the output (all but an adapter's) equal the
+    card's dense stream. Then the same config with int8 FFN weights."""
+    import torch
+    from ray_tpu_torch.llm import ContinuousBatchingEngine, EngineConfig
+    from ray_tpu_torch.models import LlamaConfig, llama_init, lora_init
+    cfg = LlamaConfig.tiny()
+    draft_cfg = dataclasses.replace(cfg, dim=32, n_layers=1, n_heads=2,
+                                    n_kv_heads=1, hidden_dim=64)
+    cpu = {"params": llama_init(SEED, cfg, device="cpu"),
+           "draft": llama_init(SEED + 1, draft_cfg, device="cpu")}
+    card = {k: to_card(v, dev, torch.float32) for k, v in cpu.items()}
+    adapters = {"ada": with_random_b(lora_init(SEED + 2, cfg, rank=4,
+                                               device="cpu"), SEED + 3, 0.5),
+                "zero": lora_init(SEED + 4, cfg, rank=8, device="cpu")}
+    prompts = [[1, 5, 9, 13], [2, 4, 6], list(range(30, 50))]
+    system = list(range(100, 116))
+    prefix_prompts = [system + [1, 2, 3], system + [7, 8],
+                      system + [40, 41, 42], system + [1, 2, 3]]
+    cases = {
+        "dense": ({}, prompts),
+        "dense_prefix_prompts": ({}, prefix_prompts),
+        "lora": (dict(max_loras=2, lora_rank=8), prompts[:1] * 3),
+        "multi_step": (dict(multi_step=4), prompts),
+        "spec_random_draft": (dict(draft_model=draft_cfg, spec_tokens=4),
+                              prompts),
+        "spec_draft_is_target": (dict(draft_model=cfg, spec_tokens=4),
+                                 prompts),
+        "prefix": (dict(enable_prefix_caching=True,
+                        prefix_cache_min_tokens=8), prefix_prompts),
+        "chunked": (dict(chunked_prefill_tokens=8), prompts),
+        "int8": (dict(quantization="int8"), prompts),
+    }
+
+    def run(name, where):
+        kw, case_prompts = cases[name]
+        tree = card if where == "card" else cpu
+        draft = kw.get("draft_model")
+        engine = ContinuousBatchingEngine(
+            EngineConfig(model=cfg, max_batch=4, max_seq=64, seed=SEED,
+                         **kw), params=tree["params"],
+            draft_params=(None if draft is None else tree["params"]
+                          if draft is cfg else tree["draft"]),
+            device=dev if where == "card" else "cpu")
+        if name == "lora":
+            for aname, lora in adapters.items():
+                engine.register_adapter(aname, lora)
+            specs = [dict(prompt_ids=list(p), max_tokens=16, adapter=a)
+                     for p, a in zip(case_prompts, (None, "ada", "zero"))]
+            return [r.output_ids for r in serve(engine, specs)]
+        if name.startswith("prefix") or name.endswith("prefix_prompts"):
+            # one after another, so that later prompts hit
+            return [engine.generate([p], max_tokens=16)[0]
+                    for p in case_prompts]
+        return engine.generate(case_prompts, max_tokens=16)
+
+    streams = {(name, where): run(name, where)
+               for name in cases for where in ("card", "cpu")}
+    free()
+    for name in cases:
+        if name == "int8":
+            continue
+        check(streams[(name, "card")] == streams[(name, "cpu")],
+              f"tiny f32 {name}: the card's streams differ from the CPU's")
+        if name.startswith("dense"):
+            continue
+        dense = streams[("dense_prefix_prompts" if name == "prefix"
+                         else "dense", "card")]
+        got = streams[(name, "card")]
+        if name == "lora":
+            check(got[0] == got[2] == dense[0] and got[1] != dense[0],
+                  "tiny f32 lora: base or fresh adapter differs from "
+                  "dense, or the adapter changes nothing")
+        else:
+            check(got == dense, f"tiny f32 {name}: streams differ from "
+                  "the card's dense stream")
+    int8 = streams[("int8", "card")]
+    check(all(len(o) == 16 for o in int8), "tiny f32 int8 did not finish")
+    return dict(cases=sorted(cases),
+                int8_agreement_with_cpu=[
+                    agreement(a, b) for a, b in
+                    zip(int8, streams[("int8", "cpu")])])
+
+
+def run_features(dev, params, prompts, bf16, outs_bf16, outs_int8):
+    """The feature phases; returns their launch counts summed."""
+    phases = [
+        ("engine_lora", ("flash_attention", "rms_norm"),
+         engine_lora, (dev, params)),
+        ("engine_multi_step", ("flash_attention", "rms_norm"),
+         engine_multi_step, (dev, params, prompts, outs_bf16, bf16)),
+        ("engine_spec", ("flash_attention", "rms_norm"),
+         engine_spec, (dev, params, prompts, outs_bf16)),
+        ("engine_prefix", ("flash_attention", "rms_norm"),
+         engine_prefix, (dev, params)),
+        ("engine_chunked", ("rms_norm", "int8_matmul"),
+         engine_chunked, (dev, params, prompts, outs_int8)),
+        ("features_vs_decode", ("flash_attention", "rms_norm"),
+         features_vs_decode, (dev,)),
+        ("features_tiny_f32", ("rms_norm", "int8_matmul"),
+         features_tiny_f32, (dev,)),
+    ]
+    total = {name: 0 for name in _counted()}
+    for name, required, fn, args in phases:
+        counts = run_phase(name, required, fn, *args)
+        total = {k: total[k] + counts[k] for k in total}
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the card against the CPU on one prefill
 # ---------------------------------------------------------------------------
 
@@ -548,7 +979,7 @@ def end_to_end_vs_cpu(dev):
     import numpy as np
     import torch
     from ray_tpu_torch.models import LlamaConfig, llama_init, llama_prefill
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    cfg = dataclasses.replace(full_config(), n_layers=2)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     params_cpu = llama_init(SEED, cpu_cfg, device="cpu")
     params_gpu = to_card(params_cpu, dev, cfg.dtype)
@@ -649,7 +1080,7 @@ def train_vs_cpu(dev):
     from ray_tpu_torch.models import (
         LlamaConfig, llama_init, llama_loss, unstack_layers)
     from ray_tpu_torch.scripts.bench_train import parameters
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    cfg = dataclasses.replace(full_config(), n_layers=2)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     params_cpu = unstack_layers(llama_init(SEED, cpu_cfg, device="cpu"))
     params_gpu = to_card(params_cpu, dev, cfg.dtype)
@@ -733,22 +1164,35 @@ def main() -> int:
 
     rng = __import__("numpy").random.default_rng(SEED)
     prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
-    bf16, counts_bf16, outs_bf16 = run_engine(dev, None, prompts)
+    # one set of Llama-3-8B bf16 weights for every full-width engine
+    from ray_tpu_torch.models import LlamaConfig, llama_init
+    t0 = time.perf_counter()
+    params = llama_init(SEED, full_config(), dev)
+    torch.cuda.synchronize()
+    emit("weights", seconds=time.perf_counter() - t0)
+    bf16, counts_bf16, outs_bf16 = run_engine(dev, None, prompts, params)
     emit("engine_bf16", **bf16)
     check(counts_bf16["flash_attention"] > 0 and counts_bf16["rms_norm"] > 0,
           f"bf16 engine did not launch K1/K4: {counts_bf16}")
-    int8, counts_int8, outs_int8 = run_engine(dev, "int8", prompts)
+    int8, counts_int8, outs_int8 = run_engine(dev, "int8", prompts, params)
     int8["first_token_agrees_with_bf16"] = [
         a[0] == b[0] for a, b in zip(outs_bf16, outs_int8)]
     emit("engine_int8", **int8)
     check(counts_int8["int8_matmul"] > 0,
           f"int8 engine did not launch K5: {counts_int8}")
+    counts_features = run_features(dev, params, prompts, bf16, outs_bf16,
+                                   outs_int8)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    emit("end_to_end_vs_cpu", **end_to_end_vs_cpu(dev))
+    prefill_vs_cpu = end_to_end_vs_cpu(dev)
+    emit("end_to_end_vs_cpu", **prefill_vs_cpu)
 
     train, counts_train = run_train(dev)
     emit("train", **train)
-    emit("train_vs_cpu", **train_vs_cpu(dev))
+    grads_vs_cpu = train_vs_cpu(dev)
+    emit("train_vs_cpu", **grads_vs_cpu)
 
     sources = {
         "flash_attention": ("ray_tpu_torch/ops/csrc/attention.cu",
@@ -769,7 +1213,9 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
             launches=(counts_bf16[kname] + counts_int8[kname]
-                      + counts_train[kname]),
+                      + counts_features[kname] + counts_train[kname]
+                      + prefill_vs_cpu["launches"][kname]
+                      + grads_vs_cpu["launches"][kname]),
             max_abs_err=max(r["max_abs_err"] for r in checks[kname]),
             ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -17,19 +17,22 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 
 
 def _leaf(a, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    shape = a.shape  # ascontiguousarray makes a 0-d array 1-d
+    a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # JAX hands out read-only views
         a = a.copy()
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device)
+    return t.reshape(shape).to(device)
 
 
 def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
-    """A JAX parameter tree (JAX or numpy arrays, int8 stacks included)
-    -> the same tree of tensors on ``device``."""
+    """A JAX parameter tree (JAX or numpy arrays, int8 stacks and 0-d
+    leaves such as a LoRA adapter's ``scale`` included) -> the same tree
+    of tensors, of the same shapes, on ``device``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}

@@ -16,8 +16,9 @@ Kernels on this path: RMSNorm (K4), flash-attention forward (K1) and,
 under autograd, its backward (K2, K3), and the weight-only int8 matmul
 in every FFN when the FFN is quantized (K5, serving only). The remaining
 large matrix products go to ``torch.matmul``, as the reference leaves
-them to XLA. Decode attention over the cache is plain PyTorch, as in
-the reference.
+them to XLA. Attention over the cache (the decode step and the chunk
+verify step) and the LoRA deltas are plain PyTorch, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -225,6 +226,16 @@ def _attention(q, k, v, config: LlamaConfig):
         "ported yet")
 
 
+def _int8_mm(x2d, w8, scale):
+    """x2d @ dequant(w8, scale) in x2d's dtype, as the reference's
+    ``_int8_mm``: off the CPU, K5 takes x in bf16 (a no-op cast for a bf16
+    model) and its bf16 result is cast back; on the CPU the plain version
+    computes in x's dtype."""
+    if x2d.device.type == "cpu":
+        return int8_matmul(x2d, w8, scale)
+    return int8_matmul(x2d.to(torch.bfloat16), w8, scale).to(x2d.dtype)
+
+
 def _ffn(layer_params: Params, h, config: LlamaConfig):
     """FFN output (pre-residual): dense SwiGLU, or its weight-only int8
     form through ``int8_matmul`` (kernel K5 on the card, its plain
@@ -237,11 +248,11 @@ def _ffn(layer_params: Params, h, config: LlamaConfig):
     if "w1_q8" in layer_params:
         b_t = h.shape[:-1]
         h2 = h.reshape(-1, h.shape[-1])
-        gate = F.silu(int8_matmul(h2, layer_params["w1_q8"],
-                                  layer_params["w1_s"]))
-        up = int8_matmul(h2, layer_params["w3_q8"], layer_params["w3_s"])
-        y = int8_matmul((gate * up).to(h.dtype), layer_params["w2_q8"],
-                        layer_params["w2_s"])
+        gate = F.silu(_int8_mm(h2, layer_params["w1_q8"],
+                               layer_params["w1_s"]))
+        up = _int8_mm(h2, layer_params["w3_q8"], layer_params["w3_s"])
+        y = _int8_mm((gate * up).to(h.dtype), layer_params["w2_q8"],
+                     layer_params["w2_s"])
         return y.reshape(*b_t, -1).to(h.dtype), zero
     gate = F.silu(h @ layer_params["w1"])
     up = h @ layer_params["w3"]
@@ -273,16 +284,26 @@ def quantize_llama_ffn(params: Params, config: LlamaConfig) -> Params:
     return {**params, "layers": layers}
 
 
-def _block(layer_params: Params, x, cos, sin, config: LlamaConfig):
+def _block(layer_params: Params, x, cos, sin, config: LlamaConfig,
+           lora=None):
     """One transformer block. Returns (x, (k, v), aux); K/V are
-    post-rope, the layout the KV cache stores."""
+    post-rope, the layout the KV cache stores. ``lora``: optional
+    (A_q, B_q, A_v, B_v, scale) low-rank deltas on the q and v
+    projections."""
     c = config
     b, s, _ = x.shape
     hd = c.head_dim
     h = rms_norm(x, layer_params["attn_norm"], c.norm_eps)
-    q = (h @ layer_params["wq"]).reshape(b, s, c.n_heads, hd)
-    k = (h @ layer_params["wk"]).reshape(b, s, c.n_kv_heads, hd)
-    v = (h @ layer_params["wv"]).reshape(b, s, c.n_kv_heads, hd)
+    q = h @ layer_params["wq"]
+    k = h @ layer_params["wk"]
+    v = h @ layer_params["wv"]
+    if lora is not None:
+        a_q, b_q, a_v, b_v, scale = lora
+        q = q + scale * _lora_delta(h, a_q, b_q)
+        v = v + scale * _lora_delta(h, a_v, b_v)
+    q = q.reshape(b, s, c.n_heads, hd)
+    k = k.reshape(b, s, c.n_kv_heads, hd)
+    v = v.reshape(b, s, c.n_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = _attention(q, k, v, c)
@@ -377,8 +398,45 @@ def llama_loss(params: Params, tokens, targets, config: LlamaConfig,
 
 
 # ---------------------------------------------------------------------------
-# Inference: KV-cache prefill + single-token decode
+# Inference: KV-cache prefill, single-token decode, chunk verify
 # ---------------------------------------------------------------------------
+
+def lora_init(seed: int, config: LlamaConfig, rank: int = 8,
+              alpha: float = 16.0, device: DeviceLike = None) -> Params:
+    """A LoRA adapter on the q and v projections, drawn from ``seed`` by a
+    ``torch.Generator`` on ``device``: A [L, D, r] is N(0, 1/D), B starts
+    at zero so a fresh adapter is the identity, and ``scale`` (0-d) is
+    alpha / rank. The bits differ from ``jax.random``'s."""
+    c = config
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def a():
+        # A maps dim -> rank whatever the projection's output size
+        return (torch.randn((c.n_layers, c.dim, rank), generator=gen,
+                            device=dev, dtype=torch.float32)
+                * c.dim ** -0.5).to(c.dtype)
+
+    a_q, a_v = a(), a()
+    return {
+        "A_q": a_q,
+        "B_q": torch.zeros((c.n_layers, rank, c.n_heads * c.head_dim),
+                           dtype=c.dtype, device=dev),
+        "A_v": a_v,
+        "B_v": torch.zeros((c.n_layers, rank, c.n_kv_heads * c.head_dim),
+                           dtype=c.dtype, device=dev),
+        "scale": torch.tensor(alpha / rank, dtype=c.dtype, device=dev),
+    }
+
+
+def _lora_delta(h, a, b):
+    """h @ A @ B with A and B shared ([D, r], [r, H]) or gathered per
+    batch row ([B, D, r], [B, r, H]); h: [B, S, D]."""
+    if a.dim() == 2:
+        return (h @ a) @ b
+    return torch.bmm(torch.bmm(h, a), b)
+
 
 def llama_init_cache(config: LlamaConfig, batch: int, max_seq: int,
                      device: DeviceLike = None):
@@ -391,12 +449,14 @@ def llama_init_cache(config: LlamaConfig, batch: int, max_seq: int,
 
 
 @torch.no_grad()
-def llama_prefill(params: Params, tokens, config: LlamaConfig):
+def llama_prefill(params: Params, tokens, config: LlamaConfig, lora=None):
     """Forward over a padded prompt, keeping per-layer K/V.
 
     tokens: [B, S] int -> (logits [B, S, vocab] f32,
     k [L, B, S, KVH, HD], v [L, B, S, KVH, HD]). Junk K/V at padding
     positions is never attended later because decode masks by position.
+    ``lora``: optional adapter (``lora_init``'s dict) applied to the
+    whole prefill; per-request adapters at decode go through the bank.
     """
     c = config
     x = _embed(params, tokens, c)
@@ -404,7 +464,11 @@ def llama_prefill(params: Params, tokens, config: LlamaConfig):
                                 device=x.device)
     ks, vs = [], []
     for i in range(c.n_layers):
-        x, (k, v), _aux = _block(_layer(params["layers"], i), x, cos, sin, c)
+        layer_lora = None if lora is None else (
+            lora["A_q"][i], lora["B_q"][i], lora["A_v"][i], lora["B_v"][i],
+            lora["scale"])
+        x, (k, v), _aux = _block(_layer(params["layers"], i), x, cos, sin, c,
+                                 lora=layer_lora)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
@@ -412,9 +476,27 @@ def llama_prefill(params: Params, tokens, config: LlamaConfig):
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+def _cached_attention(q, ck, cv, visible, config: LlamaConfig):
+    """Attention of q [B, G, H, HD] over a cache layer ck/cv [B, S, KVH,
+    HD] where ``visible`` [B, G, S] holds: query head g*n_rep + r reads
+    KV head g (the reference's jnp.repeat of the cache, without the
+    copy). Scores and softmax in f32; returns [B, G, H * HD]."""
+    c = config
+    b, g, _, hd = q.shape
+    kvh = ck.shape[2]
+    qg = q.reshape(b, g, kvh, c.n_heads // kvh, hd)
+    scores = torch.einsum("bgkrd,bskd->bkrgs", qg, ck).float()
+    scores = scores * (hd ** -0.5)
+    scores = torch.where(visible[:, None, None], scores,
+                         torch.full_like(scores, -1e30))
+    weights = torch.softmax(scores, dim=-1).to(c.dtype)
+    attn = torch.einsum("bkrgs,bskd->bgkrd", weights, cv)
+    return attn.reshape(b, g, c.n_heads * hd)
+
+
 @torch.no_grad()
 def llama_decode_step(params: Params, token, cache_k, cache_v, pos,
-                      config: LlamaConfig):
+                      config: LlamaConfig, lora_bank=None, lora_idx=None):
     """One token for every sequence in the batch.
 
     token: [B] int (the token at position ``pos``); pos: [B] int;
@@ -422,15 +504,20 @@ def llama_decode_step(params: Params, token, cache_k, cache_v, pos,
     cache_k, cache_v). The new K/V are written at ``pos`` IN PLACE: the
     returned caches are the ones passed in (the reference returns new
     arrays and donates the old ones, which comes to the same).
+
+    Multi-LoRA: ``lora_bank`` stacks adapters on a leading axis ({A_q:
+    [N, L, D, r], B_q: [N, L, r, H * HD], A_v, B_v, scale}; index 0 all
+    zero, no adapter) and ``lora_idx`` [B] picks one per row; each layer
+    gathers its own [B, D, r] and [B, r, *] factors from the bank.
     """
     c = config
     n_layers, b, s, kvh, hd = cache_k.shape
-    n_rep = c.n_heads // c.n_kv_heads
     x = _embed(params, token, c)[:, None, :]                     # [B,1,D]
     cos, sin = rope_frequencies(hd, s, c.rope_theta, device=x.device)
     pos_2d = pos[:, None]                                        # [B,1]
     # causal visibility: this token may attend to cache slots <= pos
-    visible = torch.arange(s, device=x.device)[None, :] <= pos_2d  # [B,S]
+    visible = (torch.arange(s, device=x.device)[None, :]
+               <= pos_2d)[:, None, :]                            # [B,1,S]
     rows = torch.arange(b, device=x.device)
     for i in range(n_layers):
         lp = _layer(params["layers"], i)
@@ -439,23 +526,68 @@ def llama_decode_step(params: Params, token, cache_k, cache_v, pos,
         q = (h @ lp["wq"]).reshape(b, 1, c.n_heads, hd)
         k = (h @ lp["wk"]).reshape(b, 1, kvh, hd)
         v = (h @ lp["wv"]).reshape(b, 1, kvh, hd)
+        if lora_bank is not None:
+            dq = _lora_delta(h, lora_bank["A_q"][lora_idx, i],
+                             lora_bank["B_q"][lora_idx, i])
+            dv = _lora_delta(h, lora_bank["A_v"][lora_idx, i],
+                             lora_bank["B_v"][lora_idx, i])
+            q = q + (lora_bank["scale"] * dq).reshape(b, 1, c.n_heads, hd)
+            v = v + (lora_bank["scale"] * dv).reshape(b, 1, kvh, hd)
         q = apply_rope(q, cos, sin, positions=pos_2d)
         k = apply_rope(k, cos, sin, positions=pos_2d)
         ck[rows, pos] = k[:, 0]
         cv[rows, pos] = v[:, 0]
-        # query head g*n_rep + r reads KV head g: the reference's
-        # jnp.repeat of the cache, without the copy
-        qg = q.reshape(b, kvh, n_rep, hd)
-        scores = torch.einsum("bgrd,bsgd->bgrs", qg, ck).float()
-        scores = scores * (hd ** -0.5)
-        scores = torch.where(visible[:, None, None, :], scores,
-                             torch.full_like(scores, -1e30))
-        weights = torch.softmax(scores, dim=-1).to(c.dtype)
-        attn = torch.einsum("bgrs,bsgd->bgrd", weights, cv)
-        x = x + attn.reshape(b, 1, c.n_heads * hd) @ lp["wo"]
+        attn = _cached_attention(q, ck, cv, visible, c)
+        x = x + attn @ lp["wo"]
         h = rms_norm(x, lp["mlp_norm"], c.norm_eps)
         y, _aux = _ffn(lp, h, c)
         x = x + y
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
+    return logits, cache_k, cache_v
+
+
+@torch.no_grad()
+def llama_verify_step(params: Params, tokens, cache_k, cache_v, pos,
+                      config: LlamaConfig):
+    """Score a G-token chunk per sequence in ONE forward: a speculative
+    chunk (the current token and G-1 drafts), a prompt's suffix over a
+    cached prefix, or a chunk of a prompt being prefilled.
+
+    tokens: [B, G] int; pos: [B] int chunk start positions; cache_k/v:
+    [L, B, S, KVH, HD]. Returns (logits [B, G, vocab] f32, cache_k,
+    cache_v); the chunk's K/V are written IN PLACE at pos..pos+G-1 of
+    each row, which must lie inside the cache (the caller checks: an
+    index past S raises on the CPU and faults on the card).
+    logits[:, g] is the distribution of the token AFTER chunk input g;
+    chunk position g attends cache slot t iff t <= pos + g.
+    """
+    c = config
+    n_layers, b, s, kvh, hd = cache_k.shape
+    g = tokens.shape[1]
+    x = _embed(params, tokens, c)                                # [B,G,D]
+    cos, sin = rope_frequencies(hd, s, c.rope_theta, device=x.device)
+    positions = pos[:, None] + torch.arange(g, device=x.device)[None, :]
+    visible = (torch.arange(s, device=x.device)[None, None, :]
+               <= positions[:, :, None])                         # [B,G,S]
+    rows = torch.arange(b, device=x.device)[:, None]
+    for i in range(n_layers):
+        lp = _layer(params["layers"], i)
+        ck, cv = cache_k[i], cache_v[i]                          # [B,S,KVH,HD]
+        h = rms_norm(x, lp["attn_norm"], c.norm_eps)
+        q = (h @ lp["wq"]).reshape(b, g, c.n_heads, hd)
+        k = (h @ lp["wk"]).reshape(b, g, kvh, hd)
+        v = (h @ lp["wv"]).reshape(b, g, kvh, hd)
+        q = apply_rope(q, cos, sin, positions=positions)
+        k = apply_rope(k, cos, sin, positions=positions)
+        ck[rows, positions] = k
+        cv[rows, positions] = v
+        # [B, KVH, n_rep, G, S] f32 scores live for this layer only
+        attn = _cached_attention(q, ck, cv, visible, c)
+        x = x + attn @ lp["wo"]
+        h = rms_norm(x, lp["mlp_norm"], c.norm_eps)
+        y, _aux = _ffn(lp, h, c)
+        x = x + y
+    x = rms_norm(x, params["final_norm"], c.norm_eps)
+    logits = (x @ params["lm_head"]).float()
     return logits, cache_k, cache_v

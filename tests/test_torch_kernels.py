@@ -553,3 +553,29 @@ def test_training_wrappers_refuse_what_they_cannot_run(cuda_device):
     x = torch.randn((2, 64), device=cuda_device).bfloat16()
     with pytest.raises(RuntimeError, match="backward"):
         tqm.int8_matmul(x.requires_grad_(), w8, s)
+
+
+@pytest.mark.cuda
+def test_int8_serving_of_an_f32_model_on_the_card(cuda_device):
+    """The tiny f32 config served with int8 FFN weights: ``_ffn`` hands
+    K5 x in bf16 and casts its result back, so the card serves it (the
+    wrapper refuses f32 x). Every request finishes with its tokens; the
+    stream need not equal the CPU's f32 one."""
+    from ray_tpu_torch.llm import engine as te
+    config = te.EngineConfig(model=tl.LlamaConfig.tiny(), max_batch=2,
+                             max_seq=64, quantization="int8")
+    params = tl.llama_init(0, config.model, device="cpu")
+    streams = []
+    for dev in ("cpu", cuda_device):
+        on_dev = {k: ({n: t.to(dev) for n, t in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in params.items()}
+        engine = te.ContinuousBatchingEngine(config, params=on_dev,
+                                             device=dev)
+        before = tqm.int8_matmul.launches
+        streams.append(engine.generate([[1, 2, 3], [7, 8]], max_tokens=8))
+    # three FFN products a layer in 2 prefills and 7 decode steps
+    assert tqm.int8_matmul.launches - before == 3 * 2 * (2 + 7)
+    assert all(len(o) == 8 and all(0 <= t < 256 for t in o)
+               for o in streams[1])
+    print("int8 f32 tiny, card:", streams[1], "cpu:", streams[0])

@@ -263,3 +263,135 @@ def test_forward_keeps_no_graph_under_no_grad_and_hidden_matches():
                                 return_aux=True, return_hidden=True)
     assert got.grad_fn is None and float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+# --------------------------------------------- LoRA, the bank, verify step
+
+def _jax_adapter(jcfg, seed, rank):
+    """A JAX adapter with random nonzero B (a fresh one is the identity)."""
+    key = jax.random.PRNGKey(seed)
+    lora = jl.lora_init(key, jcfg, rank=rank)
+    for i, part in enumerate(("B_q", "B_v")):
+        lora[part] = jax.random.normal(jax.random.fold_in(key, i + 1),
+                                       lora[part].shape) * 0.5
+    return lora
+
+
+def test_jax_adapter_carried_over_with_its_0d_scale():
+    jcfg, _ = _configs("gqa")
+    lora = _jax_adapter(jcfg, 3, 4)
+    got = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, lora),
+                                  device="cpu")
+    assert got["scale"].dim() == 0 and float(got["scale"]) == 4.0
+    for part in ("A_q", "B_q", "A_v", "B_v"):
+        np.testing.assert_array_equal(got[part].numpy(),
+                                      np.asarray(lora[part]))
+    fresh = tl.lora_init(0, tl.LlamaConfig.tiny(), rank=4, alpha=8.0,
+                         device="cpu")
+    assert {k: tuple(v.shape) for k, v in fresh.items()} == \
+        {k: tuple(v.shape) for k, v in got.items()}
+    assert float(fresh["scale"]) == 2.0 and not fresh["B_q"].any()
+
+
+@pytest.mark.parametrize("name", ["gqa", "mha"])
+def test_lora_prefill_matches_jax(name):
+    jcfg, tcfg = _configs(name)
+    jp, tp = _params(jcfg)
+    lora = _jax_adapter(jcfg, 3, 4)
+    tlora = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, lora),
+                                    device="cpu")
+    toks = _tokens(12)
+    jlog, jks, jvs = jl.llama_prefill(jp, jnp.asarray(toks), jcfg, lora=lora)
+    tlog, tks, tvs = tl.llama_prefill(tp, torch.from_numpy(toks).long(),
+                                      tcfg, lora=tlora)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4)
+    np.testing.assert_allclose(tvs.numpy(), np.asarray(jvs), atol=1e-5)
+    base, _, _ = tl.llama_prefill(tp, torch.from_numpy(toks).long(), tcfg)
+    assert (tlog - base).abs().max() > 1e-2  # the adapter does something
+
+
+def _seated_caches(jp, jcfg, batch, rows, prompt_len):
+    """Both sides' caches with one prompt's prefill K/V seated in each
+    of ``batch`` rows."""
+    toks = _tokens(prompt_len)
+    _, jks, jvs = jl.llama_prefill(jp, jnp.asarray(toks), jcfg)
+    jck, jcv = jl.llama_init_cache(jcfg, batch, rows)
+    jck = jck.at[:, :, :prompt_len].set(jnp.repeat(jks, batch, axis=1))
+    jcv = jcv.at[:, :, :prompt_len].set(jnp.repeat(jvs, batch, axis=1))
+    tck = torch.from_numpy(np.array(jck))
+    tcv = torch.from_numpy(np.array(jcv))
+    return jck, jcv, tck, tcv
+
+
+@pytest.mark.parametrize("name", ["gqa", "mha"])
+def test_decode_step_with_a_bank_matches_jax(name):
+    """Three rows, three bank entries (base, and two adapters of which
+    one is rank-padded), in one step."""
+    jcfg, tcfg = _configs(name)
+    jp, tp = _params(jcfg)
+    n, r = 3, 8
+    bank = {part: np.zeros((n, jcfg.n_layers) + shape, np.float32)
+            for part, shape in (("A_q", (jcfg.dim, r)),
+                                ("B_q", (r, jcfg.n_heads * jcfg.head_dim)),
+                                ("A_v", (jcfg.dim, r)),
+                                ("B_v", (r, jcfg.n_kv_heads * jcfg.head_dim)))}
+    for idx, rank in ((1, 4), (2, 8)):
+        lora = _jax_adapter(jcfg, idx, rank)
+        for part in bank:
+            a = np.asarray(lora[part])
+            if part.startswith("B"):
+                a = a * float(lora["scale"])
+            sl = (idx, slice(None)) + ((slice(None), slice(0, rank))
+                                       if part.startswith("A")
+                                       else (slice(0, rank),))
+            bank[part][sl] = a
+    bank["scale"] = np.float32(1.0)
+    jbank = {k: jnp.asarray(v) for k, v in bank.items()}
+    tbank = convert.params_from_jax(bank, device="cpu")
+    idx = np.array([2, 0, 1])
+    jck, jcv, tck, tcv = _seated_caches(jp, jcfg, 3, 16, 10)
+    tok = np.array([3, 4, 5])
+    pos = np.array([10, 10, 10])
+    jlog, jck2, jcv2 = jl.llama_decode_step(
+        jp, jnp.asarray(tok), jck, jcv, jnp.asarray(pos), jcfg,
+        lora_bank=jbank, lora_idx=jnp.asarray(idx))
+    tlog, tck2, tcv2 = tl.llama_decode_step(
+        tp, torch.from_numpy(tok), tck, tcv, torch.from_numpy(pos), tcfg,
+        lora_bank=tbank, lora_idx=torch.from_numpy(idx))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5)
+    np.testing.assert_allclose(tcv2.numpy(), np.asarray(jcv2), atol=1e-5)
+    # the base row equals a step with no bank at all
+    _, _, bck, bcv = _seated_caches(jp, jcfg, 3, 16, 10)
+    plain, _, _ = tl.llama_decode_step(tp, torch.from_numpy(tok), bck, bcv,
+                                       torch.from_numpy(pos), tcfg)
+    np.testing.assert_array_equal(tlog[1].numpy(), plain[1].numpy())
+
+
+@pytest.mark.parametrize("name", ["gqa", "mha"])
+def test_verify_step_matches_jax_with_a_parked_row(name):
+    """Row 0 scores a 4-token chunk after its prompt; row 1 is parked at
+    the cache's last four rows, as an idle slot is in the engine."""
+    jcfg, tcfg = _configs(name)
+    jp, tp = _params(jcfg)
+    rows, g = 24, 4
+    jck, jcv, tck, tcv = _seated_caches(jp, jcfg, 2, rows, 10)
+    chunk = _tokens(g, batch=2, seed=1)
+    pos = np.array([10, rows - g])
+    jlog, jck2, jcv2 = jl.llama_verify_step(
+        jp, jnp.asarray(chunk), jck, jcv, jnp.asarray(pos), jcfg)
+    tlog, tck2, tcv2 = tl.llama_verify_step(
+        tp, torch.from_numpy(chunk).long(), tck, tcv,
+        torch.from_numpy(pos), tcfg)
+    assert tck2 is tck and tlog.shape == (2, g, tcfg.vocab_size)
+    assert tlog.dtype == torch.float32
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5)
+    np.testing.assert_allclose(tck2.numpy(), np.asarray(jck2), atol=1e-5)
+    np.testing.assert_allclose(tcv2.numpy(), np.asarray(jcv2), atol=1e-5)
+    # chunk position i scores as the decode step at pos + i does
+    _, _, dck, dcv = _seated_caches(jp, jcfg, 2, rows, 10)
+    for i in range(g):
+        dlog, _, _ = tl.llama_decode_step(
+            tp, torch.from_numpy(chunk[:, i]).long(), dck, dcv,
+            torch.from_numpy(pos + i), tcfg)
+        np.testing.assert_allclose(dlog[0].numpy(), tlog[0, i].numpy(),
+                                   atol=1e-4)
