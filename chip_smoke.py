@@ -42,16 +42,26 @@ the card against the CPU from the same weights and draws
 (``rl_vs_cpu``), Anakin at 16 and 4096 envs timed over 20 updates with
 a profiled window for device busy time and launches (``rl_anakin``),
 and PPO learning CartPole past a return of 60 on its device path, then
-Pendulum on the local Python runner (``rl_ppo``), (10) the kernel
-list, with each kernel's launches summed over phases 4-8. The
+Pendulum on the local Python runner (``rl_ppo``), (10) the vision,
+diffusion and MoE models: ViT-B/16 training at batch 64
+(``vision_train``), a CLIP step with its causal text tower
+(``clip_step``), DiT-B/2 training and DDIM sampling with guidance
+(``dit_train``, ``dit_sample``), 2-layer full-width ViT and DiT loss and
+grads on the card against the CPU (``vision_vs_cpu``) and the engine at
+Mixtral-8x7B width, 8 of its 32 layers (``engine_moe``, with a 1-layer
+prefill and the tiny MoE config against the CPU); phase 3 also holds K1
+at their attention shapes (head_dim 64, H = KVH, S 197, 256 and 77) and
+K2/K3 at the non-causal ones, (11) the kernel list, with each kernel's
+launches summed over phases 4-10. The
 backward is also timed whole, as the model calls it (delta, K2, K3 and
 K3's group sum), against SDPA's backward. Every kernel's launch count
 is zeroed just before each engine phase, each feature phase, each
 training step and each RL phase and read just after; a kernel of the
 path that never launched fails the run, a training step must launch
-exactly K1 2L, K2 L, K3 L, K4 4L + 1 and K5 0 times, and an RL phase
-none. Each feature and RL phase prints its seconds; a request that ends in error, or a response that
-carries one, fails the run. The last line is the device summary; any
+exactly K1 2L, K2 L, K3 L, K4 4L + 1 and K5 0 times (the vision and
+diffusion encoders K1 2L, K2 L, K3 L and no K4), and an RL phase
+none. Each feature, RL and model phase prints its seconds; a request
+that ends in error, or a response that carries one, fails the run. The last line is the device summary; any
 failed check exits non-zero before it.
 
 Needs a CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); without a GPU,
@@ -182,57 +192,68 @@ def call_ms(fn, iters: int = 50) -> float:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_flash_attention(dev, gen):
+def live_pairs(s: int, causal: bool) -> int:
+    """(query, key) pairs a self-attention of length s computes."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def flash_forward_row(dev, gen, b, s, h, kvh, d, causal):
+    """K1 at q [b, s, h, d], k/v [b, s, kvh, d] against its plain
+    version, timed beside SDPA's forward -> the row."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import attention as att
-    b, h, kvh, d = 1, 32, 8, 128
-    rows = []
-    for s in (8, 128, 200, 512, 2048):
-        q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
-        k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
-        v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
-        out, lse = att._flash_forward(q, k, v, True)
-        ref, ref_lse = att._flash_forward_reference(q, k, v, True)
-        torch.cuda.synchronize()
-        # lse is what K2 and K3 rebuild P from: every row within 1e-3
-        lse_err = (lse - ref_lse).abs().max().item()
-        check(lse_err <= 1e-3, f"K1 S={s}: lse err {lse_err} > 1e-3")
-        diff = out.float() - ref.float()
-        err = diff.abs().max().item()
-        # long rows have small outputs (about (e/i)^0.5 at row i), which
-        # the max abs limit barely sees: hold every query position's
-        # relative L2 error as well
-        row_rel = (torch.linalg.vector_norm(diff, dim=(2, 3))
-                   / torch.linalg.vector_norm(ref.float(), dim=(2, 3)))
-        worst_row_rel = row_rel.max().item()
-        rel_l2 = (torch.linalg.vector_norm(diff)
-                  / torch.linalg.vector_norm(ref.float())).item()
-        check(torch.isfinite(out).all().item(), f"K1 S={s}: non-finite")
-        check(err <= 2e-2, f"K1 S={s}: max abs err {err} > 2e-2")
-        check(worst_row_rel <= 1e-2,
-              f"K1 S={s}: a row's relative L2 err {worst_row_rel} > 1e-2")
-        qt, kt, vt = (t.transpose(1, 2) for t in
-                      (q, att._repeat_kv(k, h), att._repeat_kv(v, h)))
-        pairs = sum(min(i + 1, s) for i in range(s))
-        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d) + 4 * b * h * s
-        bms, by = bound_ms(nbytes, 4.0 * b * h * d * pairs, BF16_TENSOR_FLOPS)
-        rows.append(dict(
-            shape=[b, s, h, kvh, d], max_abs_err=err, rel_l2_err=rel_l2,
-            worst_row_rel_l2_err=worst_row_rel, lse_max_abs_err=lse_err,
-            ms=time_ms(att.flash_attention, q, k, v, True),
-            call_ms=call_ms(lambda: att.flash_attention(q, k, v, True)),
-            plain_ms=time_ms(att._attention_reference, q, k, v, True),
-            library_ms=time_ms(
-                lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
-                qt, kt, vt),
-            bound_ms=bms, bound_by=by))
-        emit("kernel_check", kernel="flash_attention", **rows[-1])
-    return rows
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    out, lse = att._flash_forward(q, k, v, causal)
+    ref, ref_lse = att._flash_forward_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    what = f"K1 B={b} S={s} H={h} causal={causal}"
+    # lse is what K2 and K3 rebuild P from: every row within 1e-3
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"{what}: lse err {lse_err} > 1e-3")
+    diff = out.float() - ref.float()
+    err = diff.abs().max().item()
+    # long rows have small outputs (about (e/i)^0.5 at row i), which
+    # the max abs limit barely sees: hold every query position's
+    # relative L2 error as well
+    row_rel = (torch.linalg.vector_norm(diff, dim=(2, 3))
+               / torch.linalg.vector_norm(ref.float(), dim=(2, 3)))
+    worst_row_rel = row_rel.max().item()
+    rel_l2 = (torch.linalg.vector_norm(diff)
+              / torch.linalg.vector_norm(ref.float())).item()
+    check(torch.isfinite(out).all().item(), f"{what}: non-finite")
+    check(err <= 2e-2, f"{what}: max abs err {err} > 2e-2")
+    check(worst_row_rel <= 1e-2,
+          f"{what}: a row's relative L2 err {worst_row_rel} > 1e-2")
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, att._repeat_kv(k, h), att._repeat_kv(v, h)))
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d) + 4 * b * h * s
+    bms, by = bound_ms(nbytes, 4.0 * b * h * d * live_pairs(s, causal),
+                       BF16_TENSOR_FLOPS)
+    row = dict(
+        shape=[b, s, h, kvh, d], causal=causal, max_abs_err=err,
+        rel_l2_err=rel_l2, worst_row_rel_l2_err=worst_row_rel,
+        lse_max_abs_err=lse_err,
+        ms=time_ms(att.flash_attention, q, k, v, causal),
+        call_ms=call_ms(lambda: att.flash_attention(q, k, v, causal)),
+        plain_ms=time_ms(att._attention_reference, q, k, v, causal),
+        library_ms=time_ms(
+            lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal),
+            qt, kt, vt),
+        bound_ms=bms, bound_by=by)
+    emit("kernel_check", kernel="flash_attention", **row)
+    return row
 
 
-def sdpa_backward_ms(q, k, v, do):
-    """Device time of the backward of one causal
+def check_flash_attention(dev, gen):
+    return [flash_forward_row(dev, gen, 1, s, 32, 8, 128, True)
+            for s in (8, 128, 200, 512, 2048)]
+
+
+def sdpa_backward_ms(q, k, v, do, causal=True):
+    """Device time of the backward of one
     ``F.scaled_dot_product_attention`` call on K/V repeated to every
     query head -> (ms, name of SDPA's backward node). Each cold copy of
     the inputs gets its own forward; ``graph_ms`` then captures calls of
@@ -248,7 +269,7 @@ def sdpa_backward_ms(q, k, v, do):
                                      for t in base))):
         qt, kt, vt = (t.clone().requires_grad_() for t in base[:3])
         node = F.scaled_dot_product_attention(qt, kt, vt,
-                                              is_causal=True).grad_fn
+                                              is_causal=causal).grad_fn
         check("Attention" in node.name(),
               f"SDPA's output has no attention backward: {node.name()}")
         calls.append(functools.partial(node, base[3].clone()))
@@ -269,72 +290,78 @@ def rel_l2(diff, ref, dim=None):
 def check_flash_backward(dev, gen):
     """K2 and K3 against their plain versions, from K1's o and lse and a
     seeded dO, at the training path's attention shapes."""
-    import torch
-    from ray_tpu_torch.ops import attention as att
-    b, h, kvh, d = 1, 32, 8, 128
     rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
             "backward": []}
     for s in (200, 512, 2048):
-        q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
-        k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
-        v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
-        do = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
-        o, lse = att._flash_forward(q, k, v, True)
-        delta = att._delta(o, do)
-        args = (q, k, v, do, lse, delta, True)
-        got = {"flash_attention_bwd_dq": (att.flash_attention_bwd_dq(*args),),
-               "flash_attention_bwd_dkv": att.flash_attention_bwd_dkv(*args)}
-        want = {"flash_attention_bwd_dq": (att._bwd_dq_reference(*args),),
-                "flash_attention_bwd_dkv": att._bwd_dkv_reference(*args)}
-        torch.cuda.synchronize()
-        pairs = sum(min(i + 1, s) for i in range(s))
-        in_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d) + 8 * b * h * s
-        library, library_op = sdpa_backward_ms(q, k, v, do)
-        for name, flops, out_bytes, fn, plain in (
-                ("flash_attention_bwd_dq", 6.0 * d * pairs * b * h,
-                 2 * b * s * h * d, att.flash_attention_bwd_dq,
-                 att._bwd_dq_reference),
-                ("flash_attention_bwd_dkv", 8.0 * d * pairs * b * h,
-                 4 * b * s * kvh * d, att.flash_attention_bwd_dkv,
-                 att._bwd_dkv_reference)):
-            errs = {}
-            for tname, g_t, w_t in zip(("dq",) if name.endswith("dq")
-                                       else ("dk", "dv"),
-                                       got[name], want[name]):
-                diff = g_t.float() - w_t.float()
-                rel = rel_l2(diff, w_t).item()
-                # per query row of dq, per key row of dk/dv
-                worst = rel_l2(diff, w_t, dim=(2, 3)).max().item()
-                check(bool(torch.isfinite(g_t).all()),
-                      f"{name} S={s} {tname}: non-finite")
-                check(rel <= 2e-2, f"{name} S={s} {tname}: relative L2 "
-                      f"{rel} > 2e-2")
-                check(worst <= 5e-2, f"{name} S={s} {tname}: a row's "
-                      f"relative L2 {worst} > 5e-2")
-                errs[tname] = dict(max_abs_err=diff.abs().max().item(),
-                                   rel_l2_err=rel, worst_row_rel_l2_err=worst)
-            bms, by = bound_ms(in_bytes + out_bytes, flops, BF16_TENSOR_FLOPS)
-            rows[name].append(dict(
-                shape=[b, s, h, kvh, d],
-                max_abs_err=max(e["max_abs_err"] for e in errs.values()),
-                errors=errs, ms=time_ms(fn, *args),
-                call_ms=call_ms(lambda: fn(*args)),
-                plain_ms=time_ms(plain, *args),
-                library_ms=library if name.endswith("dq") else None,
-                library_op=library_op if name.endswith("dq") else None,
-                bound_ms=bms, bound_by=by))
-            emit("kernel_check", kernel=name, **rows[name][-1])
-        rows["backward"].append(check_whole_backward(
-            (q, k, v, o, lse, do), library, library_op,
-            in_bytes - 4 * b * h * s + 2 * b * s * h * d
-            + 2 * b * s * h * d + 2 * 2 * b * s * kvh * d,
-            14.0 * d * pairs * b * h))
-        del got, want, q, k, v, do, o, lse, delta, args
-        torch.cuda.empty_cache()
+        flash_backward_rows(dev, gen, 1, s, 32, 8, 128, True, rows)
     return rows
 
 
-def check_whole_backward(args, library, library_op, nbytes, flops):
+def flash_backward_rows(dev, gen, b, s, h, kvh, d, causal, rows):
+    """K2 and K3 at q [b, s, h, d], k/v [b, s, kvh, d] against their
+    plain versions, and the whole backward against SDPA's; the rows are
+    appended to ``rows`` (kernel name -> list)."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    do = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    o, lse = att._flash_forward(q, k, v, causal)
+    delta = att._delta(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    got = {"flash_attention_bwd_dq": (att.flash_attention_bwd_dq(*args),),
+           "flash_attention_bwd_dkv": att.flash_attention_bwd_dkv(*args)}
+    want = {"flash_attention_bwd_dq": (att._bwd_dq_reference(*args),),
+            "flash_attention_bwd_dkv": att._bwd_dkv_reference(*args)}
+    torch.cuda.synchronize()
+    pairs = live_pairs(s, causal)
+    in_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d) + 8 * b * h * s
+    library, library_op = sdpa_backward_ms(q, k, v, do, causal)
+    for name, flops, out_bytes, fn, plain in (
+            ("flash_attention_bwd_dq", 6.0 * d * pairs * b * h,
+             2 * b * s * h * d, att.flash_attention_bwd_dq,
+             att._bwd_dq_reference),
+            ("flash_attention_bwd_dkv", 8.0 * d * pairs * b * h,
+             4 * b * s * kvh * d, att.flash_attention_bwd_dkv,
+             att._bwd_dkv_reference)):
+        errs = {}
+        for tname, g_t, w_t in zip(("dq",) if name.endswith("dq")
+                                   else ("dk", "dv"),
+                                   got[name], want[name]):
+            diff = g_t.float() - w_t.float()
+            rel = rel_l2(diff, w_t).item()
+            # per query row of dq, per key row of dk/dv
+            worst = rel_l2(diff, w_t, dim=(2, 3)).max().item()
+            what = f"{name} B={b} S={s} H={h} causal={causal} {tname}"
+            check(bool(torch.isfinite(g_t).all()), f"{what}: non-finite")
+            check(rel <= 2e-2, f"{what}: relative L2 {rel} > 2e-2")
+            check(worst <= 5e-2, f"{what}: a row's relative L2 {worst} "
+                  "> 5e-2")
+            errs[tname] = dict(max_abs_err=diff.abs().max().item(),
+                               rel_l2_err=rel, worst_row_rel_l2_err=worst)
+        bms, by = bound_ms(in_bytes + out_bytes, flops, BF16_TENSOR_FLOPS)
+        rows[name].append(dict(
+            shape=[b, s, h, kvh, d], causal=causal,
+            max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+            errors=errs, ms=time_ms(fn, *args),
+            call_ms=call_ms(lambda: fn(*args)),
+            plain_ms=time_ms(plain, *args),
+            library_ms=library if name.endswith("dq") else None,
+            library_op=library_op if name.endswith("dq") else None,
+            bound_ms=bms, bound_by=by))
+        emit("kernel_check", kernel=name, **rows[name][-1])
+    rows["backward"].append(check_whole_backward(
+        (q, k, v, o, lse, do), library, library_op,
+        in_bytes - 4 * b * h * s + 2 * b * s * h * d
+        + 2 * b * s * h * d + 2 * 2 * b * s * kvh * d,
+        14.0 * d * pairs * b * h, causal))
+    del got, want, q, k, v, do, o, lse, delta, args
+    torch.cuda.empty_cache()
+
+
+def check_whole_backward(args, library, library_op, nbytes, flops,
+                         causal=True):
     """The backward as the model calls it (``_flash_backward``: delta,
     K2, K3 and K3's group sum) against its plain version and against
     SDPA's backward, which computes its own delta; with ``_delta``'s own
@@ -342,8 +369,8 @@ def check_whole_backward(args, library, library_op, nbytes, flops):
     ``flops``: K2's and K3's products, 14 D per live pair and head."""
     import torch
     from ray_tpu_torch.ops import attention as att
-    got = att._flash_backward(*args, True)
-    want = att._flash_backward_reference(*args, True)
+    got = att._flash_backward(*args, causal)
+    want = att._flash_backward_reference(*args, causal)
     torch.cuda.synchronize()
     errs = {}
     for tname, g_t, w_t in zip(("dq", "dk", "dv"), got, want):
@@ -354,10 +381,10 @@ def check_whole_backward(args, library, library_op, nbytes, flops):
     q, k, v, o, lse, do = args
     bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
     row = dict(shape=[q.shape[0], q.shape[1], q.shape[2], k.shape[2],
-                      q.shape[3]], rel_l2_err=errs,
-               ms=time_ms(att._flash_backward, *args, True),
+                      q.shape[3]], causal=causal, rel_l2_err=errs,
+               ms=time_ms(att._flash_backward, *args, causal),
                delta_ms=time_ms(att._delta, o, do),
-               call_ms=call_ms(lambda: att._flash_backward(*args, True)),
+               call_ms=call_ms(lambda: att._flash_backward(*args, causal)),
                library_ms=library, library_op=library_op,
                bound_ms=bms, bound_by=by)
     row["over_library"] = row["ms"] / library
@@ -502,15 +529,15 @@ class FirstTokenClock:
             self.ttft = time.perf_counter() - self.t_start
 
 
-def run_engine(dev, quantization, prompts, params):
-    """The engine on ``params`` (the shared Llama-3-8B bf16 weights;
-    ``init_s`` is the engine's own set-up: int8 quantization and the
-    caches)."""
+def run_engine(dev, quantization, prompts, params, cfg=None):
+    """The engine on ``params`` (by default the shared Llama-3-8B bf16
+    weights, ``cfg`` Llama-3-8B; ``init_s`` is the engine's own set-up:
+    int8 quantization and the caches)."""
     import torch
     from ray_tpu_torch.llm import (
         ContinuousBatchingEngine, EngineConfig, GenerationRequest)
     from ray_tpu_torch.models import LlamaConfig
-    cfg = LlamaConfig.llama3_8b()
+    cfg = cfg or LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
     engine = ContinuousBatchingEngine(
         EngineConfig(model=cfg, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
@@ -1824,6 +1851,471 @@ def run_rl(dev, card):
               f"{name} launched a kernel of K1-K5: {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: ViT, CLIP and DiT through K1-K3 without the causal mask, and
+# the Llama MoE branch at Mixtral width through the engine
+# ---------------------------------------------------------------------------
+
+# (batch, seq, heads, causal) of the vision models' attention, head_dim
+# 64 and H = KVH: ViT-B/16 at 224^2 with its class token, DiT-B/2 on
+# 32 x 32 x 4 latents, CLIP's text tower
+VISION_ATTENTION = ((64, 197, 12, False), (32, 256, 12, False),
+                    (32, 77, 8, True))
+VISION_STEPS = 3
+CLIP_BATCH, VS_CPU_BATCH = 32, 4
+DIT_SAMPLES, DIT_SAMPLE_STEPS, DIT_GUIDANCE = 8, 10, 1.5
+ADALN_STD = 0.02
+# Mixtral-8x7B cut from 32 layers to 8: the whole model is ~93 GB in
+# bf16, more than the card's 80 GB
+MIXTRAL_LAYERS = 8
+MOE_VS_CPU_TOKENS = 64
+
+
+def check_vision_attention(dev, gen):
+    """K1 at every vision shape and K2/K3 at the non-causal ones, each
+    against its plain version and timed beside SDPA."""
+    rows = {"flash_attention": [], "flash_attention_bwd_dq": [],
+            "flash_attention_bwd_dkv": [], "backward": []}
+    for b, s, h, causal in VISION_ATTENTION:
+        rows["flash_attention"].append(
+            flash_forward_row(dev, gen, b, s, h, h, 64, causal))
+        if not causal:
+            flash_backward_rows(dev, gen, b, s, h, h, 64, causal, rows)
+    return rows
+
+
+def expected_encoder_counts(n_layers: int):
+    """Launches of one training step of ``n_layers`` remat'd encoder
+    blocks: K1 in the forward and again in each block's recompute,
+    K2/K3 once a layer. LayerNorm has no kernel; there is no int8 path."""
+    return {"flash_attention": 2 * n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers,
+            "rms_norm": 0, "int8_matmul": 0}
+
+
+def add_counts(total, counts):
+    if total is None:
+        return dict(counts)
+    return {k: total[k] + counts[k] for k in total}
+
+
+def train_steps(name, step, leaves, n_layers: int):
+    """A warm-up and VISION_STEPS timed steps, each ended by
+    ``loss.item()`` with its launch counts zeroed before and read after:
+    each step launches exactly ``expected_encoder_counts``, the first
+    leaves a finite grad on every leaf, and the loss is finite and falls.
+    -> (fields, launches summed over the steps, timed ms per step)."""
+    import torch
+    want = expected_encoder_counts(n_layers)
+    losses, step_ms, counts = [], [], None
+    for i in range(1 + VISION_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_counts = read_counts()
+        check(step_counts == want,
+              f"{name} step {i} launches {step_counts} != {want}")
+        counts = add_counts(counts, step_counts)
+        if i == 0:
+            check(all(t.grad is not None
+                      and bool(torch.isfinite(t.grad).all())
+                      for t in leaves),
+                  f"{name}: a leaf got no grad, or a non-finite one")
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+    timed = sum(step_ms[1:]) / VISION_STEPS
+    return dict(losses=losses, step_ms=step_ms, timed_step_ms=timed,
+                launches_per_step=want), counts, timed
+
+
+def vision_train(dev, shared):
+    """ViT-B/16 (224^2, class token, 1000 classes, bf16, remat) training
+    on one seeded batch (``bench_train.setup_vision``)."""
+    import torch
+    from ray_tpu_torch.scripts import bench_train as bt
+    t0 = time.perf_counter()
+    cfg, params, step = bt.setup_vision("vit", dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    fields, counts, timed = train_steps("vision_train", step,
+                                        bt.parameters(params), cfg.n_layers)
+    batch = bt.VISION_BATCH["vit"]
+    return dict(model="ViT-B/16", batch=batch, seq=cfg.seq_len,
+                n_layers=cfg.n_layers, params=cfg.num_params(),
+                init_s=init_s, images_per_s=batch / (timed / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                **fields), counts
+
+
+def clip_step(dev, shared):
+    """CLIP (ViT-B/16 image tower, 12-layer 512-wide causal text tower at
+    S 77) at batch CLIP_BATCH: both embeddings, then one loss-and-grad
+    step and one AdamW update. Every K1 launch's mask is recorded: the
+    image tower's run non-causal, the text tower's causal."""
+    import torch
+    from ray_tpu_torch.models import (
+        CLIPConfig, clip_encode_image, clip_encode_text, clip_init,
+        clip_loss, unstack_layers)
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.scripts.bench_train import make_step, parameters
+    cfg = CLIPConfig()
+    params = clip_init(SEED, cfg, dev)
+    params["vision"] = unstack_layers(params["vision"])
+    params["text"] = unstack_layers(params["text"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    v = cfg.vision
+    images = torch.randn((CLIP_BATCH, v.image_size, v.image_size,
+                          v.channels), generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.text.vocab_size,
+                           (CLIP_BATCH, cfg.text.max_seq_len),
+                           generator=gen, device=dev)
+    masks = []
+    flash_forward = att._flash_forward
+
+    def spy(q, k, v, causal):
+        masks.append(causal)
+        return flash_forward(q, k, v, causal)
+
+    att._flash_forward = spy
+    try:
+        reset_counts()
+        with torch.no_grad():
+            img = clip_encode_image(params, images, cfg)
+            txt = clip_encode_text(params, tokens, cfg)
+        encode_counts = read_counts()
+        step = make_step(params, lambda: clip_loss(params, images, tokens,
+                                                   cfg))
+        leaves = parameters(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step().item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step_counts = read_counts()
+    finally:
+        att._flash_forward = flash_forward
+    lv, lt = cfg.vision.n_layers, cfg.text.n_layers
+    norms = [torch.linalg.vector_norm(e, dim=-1) for e in (img, txt)]
+    worst = max((n - 1).abs().max().item() for n in norms)
+    check(worst <= 1e-5, f"clip_step: embedding norm off 1 by {worst}")
+    check(math.isfinite(loss), f"clip_step: loss {loss}")
+    check(all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+              for t in leaves), "clip_step: a leaf got no grad, or a "
+          "non-finite one")
+    check(encode_counts == dict(expected_encoder_counts(0),
+                                flash_attention=lv + lt),
+          f"clip_step: encode launches {encode_counts}")
+    want = expected_encoder_counts(lv + lt)
+    check(step_counts == want, f"clip_step: step launches {step_counts} "
+          f"!= {want}")
+    # the image tower non-causal, the text tower causal, in both passes
+    check(masks.count(False) == 3 * lv and masks.count(True) == 3 * lt,
+          f"clip_step: K1 masks {masks.count(False)} non-causal, "
+          f"{masks.count(True)} causal")
+    return dict(batch=CLIP_BATCH, text_seq=cfg.text.max_seq_len,
+                loss=loss, step_ms=step_ms, worst_norm_err=worst,
+                k1_noncausal=masks.count(False), k1_causal=masks.count(True),
+                launches_per_step=step_counts,
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9), \
+        add_counts(encode_counts, step_counts)
+
+
+def dit_train(dev, shared):
+    """DiT-B/2 (1000 classes, 32 x 32 x 4 latents, bf16, remat) training
+    from its adaLN-Zero init on one seeded batch, with one set of draws
+    (t, eps, label drop) for every step (``bench_train.setup_vision``)."""
+    import torch
+    from ray_tpu_torch.scripts import bench_train as bt
+    t0 = time.perf_counter()
+    cfg, params, step = bt.setup_vision("dit", dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    leaves = bt.parameters(params)
+    fields, counts, timed = train_steps("dit_train", step, leaves,
+                                        cfg.n_layers)
+    for t in leaves:
+        t.requires_grad_(False)
+    shared["dit"] = (cfg, params)
+    batch = bt.VISION_BATCH["dit"]
+    return dict(model="DiT-B/2", batch=batch, seq=cfg.n_patches,
+                n_layers=cfg.n_layers, init_s=init_s,
+                samples_per_s=batch / (timed / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                **fields), counts
+
+
+def dit_sample_phase(dev, shared):
+    """DDIM sampling of DIT_SAMPLES latents over DIT_SAMPLE_STEPS steps
+    with classifier-free guidance (two forwards a step) from the weights
+    dit_train left."""
+    import torch
+    from ray_tpu_torch.models import dit_sample, draw_dit_noise
+    cfg, params = shared.pop("dit")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    noise = draw_dit_noise(gen, (DIT_SAMPLES, cfg.input_size,
+                                 cfg.input_size, cfg.channels), dev)
+    labels = torch.arange(DIT_SAMPLES, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dit_sample(params, noise, cfg, DIT_SAMPLES, DIT_SAMPLE_STEPS,
+                     labels=labels, guidance_scale=DIT_GUIDANCE)
+    biggest = out.abs().max().item()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check(tuple(out.shape) == tuple(noise["eps"].shape)
+          and bool(torch.isfinite(out).all()), "dit_sample: non-finite or "
+          f"misshapen samples {tuple(out.shape)}")
+    want = dict(expected_encoder_counts(0),
+                flash_attention=2 * cfg.n_layers * DIT_SAMPLE_STEPS)
+    check(counts == want, f"dit_sample launches {counts} != {want}")
+    return dict(n=DIT_SAMPLES, steps=DIT_SAMPLE_STEPS,
+                guidance_scale=DIT_GUIDANCE, max_abs=biggest,
+                step_ms=seconds / DIT_SAMPLE_STEPS * 1e3,
+                samples_per_s=DIT_SAMPLES / seconds), counts
+
+
+def with_random_adaln(params, seed, std):
+    """DiT ``params`` (layers unstacked) with the adaLN-Zero leaves
+    (mod_w, mod_b, final_mod_*, final_w) drawn N(0, std^2) from ``seed``:
+    at init they are zero, the blocks the identity and most grads zero,
+    where a comparison proves nothing."""
+    import torch
+    gen = torch.Generator(device=params["final_w"].device)
+    gen.manual_seed(seed)
+
+    def draw(t):
+        return (torch.randn(t.shape, generator=gen, device=t.device)
+                * std).to(t.dtype)
+
+    out = dict(params, layers=[dict(lp, mod_w=draw(lp["mod_w"]),
+                                    mod_b=draw(lp["mod_b"]))
+                               for lp in params["layers"]])
+    for name in ("final_mod_w", "final_mod_b", "final_w"):
+        out[name] = draw(params[name])
+    return out
+
+
+def vision_vs_cpu(dev, shared):
+    """2-layer full-width ViT-B/16 and DiT-B/2 (random adaLN leaves), loss
+    and grads at batch VS_CPU_BATCH: bf16 on the card through K1-K3
+    against the plain f32 version on the CPU from the same weights and
+    draws, with train_vs_cpu's bars (loss 1e-2, grads 1e-1 relative
+    L2)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import (
+        DiTConfig, ViTConfig, dit_init, dit_loss, draw_dit_noise,
+        unstack_layers, vit_init, vit_loss)
+    from ray_tpu_torch.scripts.bench_train import parameters
+    rng = np.random.default_rng(SEED)
+    vit = ViTConfig.base(n_classes=1000, pool="cls", n_layers=2)
+    images = torch.from_numpy(rng.standard_normal(
+        (VS_CPU_BATCH, vit.image_size, vit.image_size, vit.channels)
+    ).astype(np.float32))
+    vit_labels = torch.from_numpy(rng.integers(0, 1000, VS_CPU_BATCH))
+    dit = DiTConfig.b_2(n_classes=1000, n_layers=2)
+    shape = (VS_CPU_BATCH, dit.input_size, dit.input_size, dit.channels)
+    x0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    dit_labels = torch.from_numpy(rng.integers(0, 1000, VS_CPU_BATCH))
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 5)
+    noise = draw_dit_noise(gen, shape, "cpu")
+    models = {
+        "vit": (vit, unstack_layers(vit_init(
+            SEED, dataclasses.replace(vit, dtype=torch.float32), "cpu")),
+            lambda p, c, d: vit_loss(p, images.to(d), vit_labels.to(d), c),
+            ("patch_embed", "pos_embed", "head_w"), ("wq", "wv", "w1",
+                                                     "w2")),
+        "dit": (dit, with_random_adaln(unstack_layers(dit_init(
+            SEED, dataclasses.replace(dit, dtype=torch.float32), "cpu")),
+            SEED + 6, ADALN_STD),
+            lambda p, c, d: dit_loss(
+                p, {k: t.to(d) for k, t in noise.items()}, x0.to(d), c,
+                dit_labels.to(d)),
+            ("patch_embed", "time_w1", "label_embed", "final_w"),
+            ("wq", "w2", "mod_w")),
+    }
+    out, total = {}, None
+    for name, (cfg, params_cpu, loss_fn, top, stacked) in models.items():
+        def loss_and_grads(params, c, device):
+            for t in parameters(params):
+                t.requires_grad_(True)
+            loss = loss_fn(params, c, device)
+            loss.backward()
+            grads = {k: params[k].grad for k in top}
+            grads.update({k: torch.stack([lp[k].grad for lp in
+                                          params["layers"]])
+                          for k in stacked})
+            return loss.item(), {k: g.float().cpu() for k, g in
+                                 grads.items()}
+
+        params_gpu = to_card(params_cpu, dev, torch.bfloat16)
+        reset_counts()
+        loss_gpu, grads_gpu = loss_and_grads(params_gpu, cfg, dev)
+        counts = read_counts()
+        want = expected_encoder_counts(cfg.n_layers)
+        check(counts == want, f"{name} card loss+grad launches {counts} "
+              f"!= {want}")
+        cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        loss_cpu, grads_cpu = loss_and_grads(params_cpu, cpu_cfg, "cpu")
+        rel_loss = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        check(rel_loss <= 1e-2,
+              f"{name} card vs CPU loss {loss_gpu} vs {loss_cpu}")
+        rel_grads = {}
+        for k, g in grads_gpu.items():
+            c = grads_cpu[k]
+            check(bool(torch.isfinite(g).all()), f"{name} grad {k} "
+                  "non-finite")
+            rel_grads[k] = (torch.linalg.vector_norm(g - c)
+                            / torch.linalg.vector_norm(c)).item()
+            check(rel_grads[k] <= 1e-1, f"{name} card vs CPU grad {k} "
+                  f"relative L2 {rel_grads[k]} > 1e-1")
+        out[name] = dict(loss_card=loss_gpu, loss_cpu=loss_cpu,
+                         rel_loss=rel_loss, rel_l2_grads=rel_grads)
+        total = add_counts(total, counts)
+        del params_gpu
+        free()
+    return out, total
+
+
+def engine_moe(dev, shared):
+    """The engine at Mixtral-8x7B width, MIXTRAL_LAYERS of its 32 layers,
+    bf16 random weights from the seed, on the PROMPT_LENS prompts; then a
+    1-layer Mixtral-width prefill on the card against the plain f32
+    version on the CPU (top-k sets and the output where they agree); then
+    LlamaConfig.tiny_moe() in f32 on the card and the CPU, whose routing
+    and greedy streams must be equal (dense and chunked prefill)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.llm import ContinuousBatchingEngine, EngineConfig
+    from ray_tpu_torch.models import LlamaConfig, llama_init, llama_prefill
+    from ray_tpu_torch.parallel import moe
+    cfg = LlamaConfig.mixtral_8x7b(n_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = llama_init(SEED, cfg, dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     [*params["layers"].values(), params["embedding"],
+                      params["lm_head"]]) / 1e9
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    torch.cuda.reset_peak_memory_stats(dev)
+    fields, counts, _outs = run_engine(dev, None, prompts, params, cfg)
+    check(counts["flash_attention"] > 0 and counts["rms_norm"] > 0,
+          f"engine_moe did not launch K1/K4: {counts}")
+    del params
+    free()
+
+    routes = []
+    top_k_gating = moe.top_k_gating
+
+    def spy(x, router, k):
+        got = top_k_gating(x, router, k)
+        routes.append(got[1])
+        return got
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    one_f32 = dataclasses.replace(one, dtype=torch.float32)
+    params_f32 = llama_init(SEED + 1, one_f32, dev)  # drawn on the card
+    params_cpu = to_card(params_f32, "cpu", torch.float32)
+    params_gpu = to_card(params_f32, dev, torch.bfloat16)
+    del params_f32
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, MOE_VS_CPU_TOKENS)))
+    moe.top_k_gating = spy
+    try:
+        reset_counts()
+        logits_gpu, _, _ = llama_prefill(params_gpu, tokens.to(dev), one)
+        one_counts = read_counts()
+        logits_cpu, _, _ = llama_prefill(params_cpu, tokens, one_f32)
+    finally:
+        moe.top_k_gating = top_k_gating
+    del params_gpu, params_cpu
+    free()
+    check(one_counts["flash_attention"] == 1
+          and one_counts["rms_norm"] == 3, f"1-layer prefill launches "
+          f"{one_counts}")
+    sets_gpu = routes[0].cpu().sort(-1).values
+    sets_cpu = routes[1].sort(-1).values
+    same = (sets_gpu == sets_cpu).all(-1)
+    agree = same.float().mean().item()
+    check(agree >= 0.9, f"top-k sets agree on {agree} of the tokens < 0.9")
+    g = logits_gpu[0][same].float().cpu()
+    c = logits_cpu[0][same]
+    rel = (torch.linalg.vector_norm(g - c)
+           / torch.linalg.vector_norm(c)).item()
+    check(bool(torch.isfinite(logits_gpu).all()), "non-finite logits")
+    check(rel <= 5e-2, f"card vs CPU relative L2 {rel} > 5e-2 on the "
+          "tokens routed alike")
+
+    tiny = LlamaConfig.tiny_moe()
+    tiny_cpu = llama_init(SEED, tiny, device="cpu")
+    tiny_card = to_card(tiny_cpu, dev, torch.float32)
+    prompts_tiny = [[1, 5, 9, 13], [2, 4, 6], list(range(30, 50))]
+    streams = {}
+    for kw in ({}, dict(chunked_prefill_tokens=8)):
+        for where, tree in (("card", tiny_card), ("cpu", tiny_cpu)):
+            engine = ContinuousBatchingEngine(
+                EngineConfig(model=tiny, max_batch=4, max_seq=64,
+                             seed=SEED, **kw), params=tree,
+                device=dev if where == "card" else "cpu")
+            streams[(str(kw), where)] = engine.generate(prompts_tiny,
+                                                        max_tokens=16)
+        check(streams[(str(kw), "card")] == streams[(str(kw), "cpu")],
+              f"tiny_moe f32 {kw}: the card's streams differ from the CPU's")
+    routes.clear()
+    moe.top_k_gating = spy
+    try:
+        ids = torch.tensor([list(range(40, 72))])
+        llama_prefill(tiny_card, ids.to(dev), tiny)
+        llama_prefill(tiny_cpu, ids, tiny)
+    finally:
+        moe.top_k_gating = top_k_gating
+    n = tiny.n_layers
+    check(len(routes) == 2 * n and all(
+        torch.equal(a.cpu(), b) for a, b in zip(routes[:n], routes[n:])),
+        "tiny_moe f32: the card's routing differs from the CPU's")
+    # since the reset before the 1-layer prefill
+    rest_counts = read_counts()
+    fields.update(
+        model=f"Mixtral-8x7B width, {MIXTRAL_LAYERS} of 32 layers",
+        weights_s=weights_s, weights_gb=weights_gb,
+        vs_cpu=dict(tokens=MOE_VS_CPU_TOKENS, topk_sets_agree=agree,
+                    rel_l2_where_routed_alike=rel, launches=one_counts),
+        tiny_moe_streams_equal=True,
+        engine_peak_mem_gb=fields.pop("peak_mem_gb"),
+        engine_launches=fields.pop("launches"))
+    return fields, add_counts(counts, rest_counts)
+
+
+def run_models(dev):
+    """Phase 10; every phase zeroes the launch counts before it runs and
+    reads them after -> the launches summed over the phases."""
+    shared, total = {}, None
+    for name, fn in (("vision_train", vision_train),
+                     ("clip_step", clip_step), ("dit_train", dit_train),
+                     ("dit_sample", dit_sample_phase),
+                     ("vision_vs_cpu", vision_vs_cpu),
+                     ("engine_moe", engine_moe)):
+        t0 = time.perf_counter()
+        fields, counts = fn(dev, shared)
+        free()
+        emit(name, seconds=time.perf_counter() - t0, launches=counts,
+             **fields)
+        total = add_counts(total, counts)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1862,6 +2354,7 @@ def main() -> int:
               **check_flash_backward(dev, gen),
               "rms_norm": check_rms_norm(dev, gen),
               "int8_matmul": check_int8_matmul(dev, gen)}
+    vision_checks = check_vision_attention(dev, gen)
 
     rng = __import__("numpy").random.default_rng(SEED)
     prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
@@ -1895,6 +2388,7 @@ def main() -> int:
     grads_vs_cpu = train_vs_cpu(dev)
     emit("train_vs_cpu", **grads_vs_cpu)
     run_rl(dev, smi)
+    counts_models = run_models(dev)
 
     sources = {
         "flash_attention": ("ray_tpu_torch/ops/csrc/attention.cu",
@@ -1912,20 +2406,23 @@ def main() -> int:
     kernels = []
     for kname, (src, replaces, headline) in sources.items():
         row = checks[kname][headline]
+        shapes = checks[kname] + vision_checks.get(kname, [])
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
             launches=(counts_bf16[kname] + counts_int8[kname]
                       + counts_features[kname] + counts_train[kname]
                       + prefill_vs_cpu["launches"][kname]
-                      + grads_vs_cpu["launches"][kname]),
-            max_abs_err=max(r["max_abs_err"] for r in checks[kname]),
+                      + grads_vs_cpu["launches"][kname]
+                      + counts_models[kname]),
+            max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"],
-            shapes=checks[kname]))
+            shapes=shapes))
     # the whole backward as the model calls it, beside K2's row (whose
     # library_ms is SDPA's whole backward)
-    kernels[1]["whole_backward"] = checks["backward"]
+    kernels[1]["whole_backward"] = checks["backward"] + \
+        vision_checks["backward"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

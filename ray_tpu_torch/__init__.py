@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["llm", "models", "ops", "rl", "serve", "util"]
+__all__ = ["llm", "models", "ops", "parallel", "rl", "serve", "util"]
 
 
 def __getattr__(name):

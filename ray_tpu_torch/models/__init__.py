@@ -1,14 +1,25 @@
-"""Models of the port: the Llama family, for serving and training."""
+"""Models of the port: the Llama family (dense and MoE) for serving and
+training, the MLP classifier, ViT and CLIP, and DiT."""
 
 from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.dit import (
+    DiTConfig, dit_forward, dit_init, dit_loss, dit_sample, draw_dit_noise)
 from ray_tpu_torch.models.llama import (
     LlamaConfig, chunked_cross_entropy, llama_decode_step, llama_forward,
     llama_init, llama_init_cache, llama_loss, llama_prefill,
     llama_verify_step, lora_init, quantize_llama_ffn, stack_layers,
     unstack_layers)
+from ray_tpu_torch.models.mlp import MLPConfig, mlp_forward, mlp_init
+from ray_tpu_torch.models.vit import (
+    CLIPConfig, CLIPTextConfig, ViTConfig, clip_encode_image,
+    clip_encode_text, clip_init, clip_loss, vit_forward, vit_init, vit_loss)
 
-__all__ = ["LlamaConfig", "chunked_cross_entropy", "llama_decode_step",
-           "llama_forward", "llama_init", "llama_init_cache", "llama_loss",
-           "llama_prefill", "llama_verify_step", "lora_init",
+__all__ = ["CLIPConfig", "CLIPTextConfig", "DiTConfig", "LlamaConfig",
+           "MLPConfig", "ViTConfig", "chunked_cross_entropy",
+           "clip_encode_image", "clip_encode_text", "clip_init", "clip_loss",
+           "dit_forward", "dit_init", "dit_loss", "dit_sample",
+           "draw_dit_noise", "llama_decode_step", "llama_forward",
+           "llama_init", "llama_init_cache", "llama_loss", "llama_prefill",
+           "llama_verify_step", "lora_init", "mlp_forward", "mlp_init",
            "params_from_jax", "quantize_llama_ffn", "stack_layers",
-           "unstack_layers"]
+           "unstack_layers", "vit_forward", "vit_init", "vit_loss"]

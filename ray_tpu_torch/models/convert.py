@@ -31,9 +31,12 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 
 def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     """A JAX parameter tree (JAX or numpy arrays, int8 stacks and 0-d
-    leaves such as a LoRA adapter's ``scale`` included) -> the same tree
-    of tensors, of the same shapes, on ``device``."""
+    leaves such as a LoRA adapter's ``scale`` or CLIP's ``logit_scale``
+    included; dicts, and lists such as the MLP's layers) -> the same
+    tree of tensors, of the same shapes, on ``device``."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, dev) for v in tree]
     return _leaf(tree, dev)

@@ -18,7 +18,9 @@ in every FFN when the FFN is quantized (K5, serving only). The remaining
 large matrix products go to ``torch.matmul``, as the reference leaves
 them to XLA. Attention over the cache (the decode step and the chunk
 verify step) and the LoRA deltas are plain PyTorch, as in the
-reference.
+reference. With ``moe_experts`` set, every FFN (training, prefill,
+decode and verify alike) is the mixture-of-experts layer of
+parallel/moe.py, whose einsums are ``torch.einsum``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ray_tpu_torch.ops.attention import _attention_reference, flash_attention
 from ray_tpu_torch.ops.quant_matmul import int8_matmul, quantize_int8
 from ray_tpu_torch.ops.rmsnorm import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel.moe import moe_ffn
 
 Params = Dict[str, Any]
 
@@ -59,8 +62,13 @@ class LlamaConfig:
     # Chunked cross-entropy: tokens per chunk (0 = dense loss), so the
     # [B, S, vocab] f32 logits never exist (chunked_cross_entropy).
     ce_chunk_tokens: int = 0
+    # Mixture-of-Experts: >0 replaces the dense FFN with moe_experts
+    # expert FFNs routed top-k (parallel/moe.py), on one device.
     moe_experts: int = 0
     moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    # weight of the Switch-style load-balancing aux loss (per layer)
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -89,6 +97,8 @@ class LlamaConfig:
 
     @staticmethod
     def mixtral_8x7b(**kw) -> "LlamaConfig":
+        """Mixtral-8x7B shape: 8-expert top-2 SwiGLU MoE on a
+        Mistral-7B trunk (GQA 8 KV heads)."""
         defaults = dict(vocab_size=32000, dim=4096, n_layers=32,
                         n_heads=32, n_kv_heads=8, hidden_dim=14336,
                         max_seq_len=32768, rope_theta=1e6,
@@ -98,6 +108,7 @@ class LlamaConfig:
 
     @staticmethod
     def tiny_moe(**kw) -> "LlamaConfig":
+        """Test-scale MoE config."""
         defaults = dict(moe_experts=4, moe_top_k=2)
         defaults.update(kw)
         return LlamaConfig.tiny(**defaults)
@@ -144,10 +155,10 @@ def llama_init(seed: int, config: LlamaConfig,
     ``device``, layers stacked on axis 0, each weight N(0, 1/fan_in) in
     the model dtype. Each layer's slice is drawn in f32 and cast on its own, so
     the f32 copy of a whole stack never exists. The bits differ from
-    ``jax.random``; ``params_from_jax`` carries JAX weights over."""
+    ``jax.random``; ``params_from_jax`` carries JAX weights over. An MoE
+    config stacks its expert FFNs as [L, E, ...] beside a router
+    [L, D, E], as the reference does."""
     c = config
-    if c.moe_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -172,10 +183,13 @@ def llama_init(seed: int, config: LlamaConfig,
         "wo": stack((c.n_heads * hd, c.dim), c.n_heads * hd),
         "mlp_norm": torch.ones((c.n_layers, c.dim), dtype=c.dtype,
                                device=dev),
-        "w1": stack((c.dim, c.hidden_dim), c.dim),
-        "w3": stack((c.dim, c.hidden_dim), c.dim),
-        "w2": stack((c.hidden_dim, c.dim), c.hidden_dim),
     }
+    experts = (c.moe_experts,) if c.moe_experts else ()
+    if c.moe_experts:
+        layers["router"] = stack((c.dim, c.moe_experts), c.dim)
+    layers["w1"] = stack((*experts, c.dim, c.hidden_dim), c.dim)
+    layers["w3"] = stack((*experts, c.dim, c.hidden_dim), c.dim)
+    layers["w2"] = stack((*experts, c.hidden_dim, c.dim), c.hidden_dim)
     return {
         "embedding": dense((c.vocab_size, c.dim), c.dim),
         "layers": layers,
@@ -190,6 +204,16 @@ def _layer(layers, i: int) -> Params:
     if isinstance(layers, list):
         return layers[i]
     return {name: stack[i] for name, stack in layers.items()}
+
+
+def remat_wrap(block, remat: bool):
+    """``block`` under ``torch.utils.checkpoint`` when ``remat`` is set
+    and grad is on (the reference's ``jax.checkpoint``): the backward
+    recomputes the block, and only its inputs stay alive between the
+    passes."""
+    if remat and torch.is_grad_enabled():
+        return functools.partial(checkpoint, block, use_reentrant=False)
+    return block
 
 
 def unstack_layers(params: Params) -> Params:
@@ -237,13 +261,16 @@ def _int8_mm(x2d, w8, scale):
 
 
 def _ffn(layer_params: Params, h, config: LlamaConfig):
-    """FFN output (pre-residual): dense SwiGLU, or its weight-only int8
+    """FFN output (pre-residual): dense SwiGLU, its weight-only int8
     form through ``int8_matmul`` (kernel K5 on the card, its plain
-    version on the CPU). Returns (y, aux); aux is the MoE loss, 0 for a
-    dense FFN."""
+    version on the CPU), or the MoE layer. Returns (y, aux); aux is the
+    MoE load-balancing loss, 0 for a dense FFN."""
     c = config
     if c.moe_experts:
-        raise NotImplementedError("MoE FFNs are not ported yet")
+        return moe_ffn(h, layer_params["router"], layer_params["w1"],
+                       layer_params["w3"], layer_params["w2"],
+                       top_k=c.moe_top_k,
+                       capacity_factor=c.moe_capacity_factor)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if "w1_q8" in layer_params:
         b_t = h.shape[:-1]
@@ -320,17 +347,17 @@ def _embed(params: Params, tokens, config: LlamaConfig):
 def llama_forward(params: Params, tokens, config: LlamaConfig,
                   return_aux: bool = False, return_hidden: bool = False):
     """tokens: [B, S] int -> logits [B, S, vocab] (float32), differentiable.
-    With return_aux, also returns the summed MoE loss (0: dense FFNs
-    only). With return_hidden, returns the final-norm hidden states
-    INSTEAD of logits (chunked_cross_entropy applies lm_head chunk by
-    chunk). With ``config.remat`` and grad enabled, each block runs under
-    ``torch.utils.checkpoint`` and is recomputed in the backward."""
+    With return_aux, also returns the MoE load-balancing loss summed over
+    the layers (0 for dense FFNs). With return_hidden, returns the
+    final-norm hidden states INSTEAD of logits (chunked_cross_entropy
+    applies lm_head chunk by chunk). With ``config.remat`` and grad
+    enabled, each block runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward."""
     c = config
     x = _embed(params, tokens, c)
     cos, sin = rope_frequencies(c.head_dim, tokens.shape[1], c.rope_theta,
                                 device=x.device)
-    block = (functools.partial(checkpoint, _block, use_reentrant=False)
-             if c.remat and torch.is_grad_enabled() else _block)
+    block = remat_wrap(_block, c.remat)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(c.n_layers):
         x, _kv, aux = block(_layer(params["layers"], i), x, cos, sin, c)
@@ -380,21 +407,29 @@ def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
 
 def llama_loss(params: Params, tokens, targets, config: LlamaConfig,
                mask=None):
-    """Next-token cross-entropy, f32 scalar. ``config.ce_chunk_tokens``
-    switches to the chunked loss that never materializes the
-    [B, S, vocab] logits; ``mask`` [B, S] weighs each token."""
+    """Next-token cross-entropy, f32 scalar, plus ``moe_aux_weight`` x
+    the mean per-layer load-balancing loss for an MoE config.
+    ``config.ce_chunk_tokens`` switches to the chunked loss that never
+    materializes the [B, S, vocab] logits; ``mask`` [B, S] weighs each
+    token."""
     if config.ce_chunk_tokens:
-        hidden = llama_forward(params, tokens, config, return_hidden=True)
-        return chunked_cross_entropy(hidden, params["lm_head"], targets,
+        hidden, aux = llama_forward(params, tokens, config, return_aux=True,
+                                    return_hidden=True)
+        loss = chunked_cross_entropy(hidden, params["lm_head"], targets,
                                      mask,
                                      chunk_tokens=config.ce_chunk_tokens)
-    logits = llama_forward(params, tokens, config)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, targets[..., None].long())[..., 0]
-    if mask is None:
-        return -ll.mean()
-    mask = mask.float()
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        logits, aux = llama_forward(params, tokens, config, return_aux=True)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = logp.gather(-1, targets[..., None].long())[..., 0]
+        if mask is None:
+            loss = -ll.mean()
+        else:
+            mask = mask.float()
+            loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if config.moe_experts:
+        loss = loss + config.moe_aux_weight * aux / config.n_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------

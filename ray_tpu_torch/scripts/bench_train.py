@@ -15,14 +15,18 @@ versions and reports no MFU.
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models.dit import (
+    DiTConfig, dit_init, dit_loss, draw_dit_noise)
 from ray_tpu_torch.models.llama import (
     LlamaConfig, Params, llama_init, llama_loss, unstack_layers)
+from ray_tpu_torch.models.vit import ViTConfig, vit_init, vit_loss
 
 H100_BF16_DENSE_FLOPS = 989e12
 BATCH, SEQ, STEPS, CE_CHUNK = 1, 2048, 3, 1024
@@ -36,15 +40,15 @@ def parameters(params: Params):
     return [t for item in items for t in parameters(item)]
 
 
-def make_train_step(cfg: LlamaConfig, params: Params, lr: float = 3e-4,
-                    weight_decay: float = 0.01):
-    """``step(tokens, targets) -> loss`` that updates ``params`` in
-    place: ``llama_loss``, its backward, then AdamW (betas 0.9/0.999,
-    eps 1e-8) over one parameter group, since ``optax.adamw`` decays
-    every leaf. Keep the layers unstacked (``unstack_layers``). On the
-    card the update is the fused AdamW: the ``foreach`` one would
-    allocate temporaries the size of all parameters. The moments take
-    the parameters' dtype."""
+def make_step(params: Params, loss_fn, lr: float = 3e-4,
+              weight_decay: float = 0.01):
+    """``step(*args) -> loss`` that updates ``params`` in place:
+    ``loss_fn(*args)``, its backward, then AdamW (betas 0.9/0.999, eps
+    1e-8) over one parameter group, since ``optax.adamw`` decays every
+    leaf. Keep the layers unstacked (``unstack_layers``). On the card
+    the update is the fused AdamW: the ``foreach`` one would allocate
+    temporaries the size of all parameters. The moments take the
+    parameters' dtype."""
     leaves = parameters(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -53,14 +57,23 @@ def make_train_step(cfg: LlamaConfig, params: Params, lr: float = 3e-4,
                             weight_decay=weight_decay,
                             fused=True if on_card else None)
 
-    def step(tokens, targets) -> torch.Tensor:
+    def step(*args) -> torch.Tensor:
         opt.zero_grad(set_to_none=True)
-        loss = llama_loss(params, tokens, targets, cfg)
+        loss = loss_fn(*args)
         loss.backward()
         opt.step()
         return loss.detach()
 
     return step
+
+
+def make_train_step(cfg: LlamaConfig, params: Params, lr: float = 3e-4,
+                    weight_decay: float = 0.01):
+    """``step(tokens, targets) -> loss``: :func:`make_step` over
+    ``llama_loss``."""
+    return make_step(
+        params, lambda tokens, targets: llama_loss(params, tokens, targets,
+                                                   cfg), lr, weight_decay)
 
 
 def setup(cfg: LlamaConfig, batch: int, seq: int, device: DeviceLike = None):
@@ -78,12 +91,49 @@ def setup(cfg: LlamaConfig, batch: int, seq: int, device: DeviceLike = None):
     return params, make_train_step(cfg, params), tokens, targets
 
 
-def timed_steps(step, tokens, targets, steps: int):
-    """``steps`` steps back to back, ended by ``loss.item()`` -> (host
-    ms per step, final loss)."""
+# images (ViT-B/16) or latents (DiT-B/2) per step of setup_vision
+VISION_BATCH = {"vit": 64, "dit": 32}
+
+
+def setup_vision(model: str, device: DeviceLike = None):
+    """A vision model's training state -> ``(cfg, params, step)``:
+    ViT-B/16 (224^2, class token, 1000 classes) or DiT-B/2 (1000
+    classes, 32 x 32 x 4 latents), bf16 with remat, at
+    ``VISION_BATCH[model]``; weights from seed 0 with the layers
+    unstacked, one fixed batch (and DiT's draws: t, eps, label drop) from
+    seed 1, and ``step() -> loss``, the :func:`make_step` over it."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = VISION_BATCH[model]
+    labels_of = functools.partial(torch.randint, 0, 1000, (batch,),
+                                  generator=gen, device=dev)
+    if model == "vit":
+        cfg = ViTConfig.base(n_classes=1000, pool="cls")
+        params = unstack_layers(vit_init(0, cfg, dev))
+        images = torch.randn((batch, cfg.image_size, cfg.image_size,
+                              cfg.channels), generator=gen, device=dev)
+        labels = labels_of()
+        return cfg, params, make_step(
+            params, lambda: vit_loss(params, images, labels, cfg))
+    if model != "dit":
+        raise ValueError(f"unknown vision model {model!r}")
+    cfg = DiTConfig.b_2(n_classes=1000)
+    params = unstack_layers(dit_init(0, cfg, dev))
+    shape = (batch, cfg.input_size, cfg.input_size, cfg.channels)
+    x0 = torch.randn(shape, generator=gen, device=dev)
+    labels = labels_of()
+    noise = draw_dit_noise(gen, shape, dev)
+    return cfg, params, make_step(
+        params, lambda: dit_loss(params, noise, x0, cfg, labels))
+
+
+def timed_steps(step, steps: int, *args):
+    """``steps`` calls of ``step(*args)`` back to back, ended by
+    ``loss.item()`` -> (host ms per step, final loss)."""
     t0 = time.perf_counter()
     for _ in range(steps):
-        loss = step(tokens, targets)
+        loss = step(*args)
     final_loss = loss.item()
     return (time.perf_counter() - t0) / steps * 1e3, final_loss
 
@@ -94,7 +144,7 @@ def bench_config(cfg: LlamaConfig, batch: int, seq: int, steps: int,
     dev = resolve_device(device)
     _params, step, tokens, targets = setup(cfg, batch, seq, dev)
     step(tokens, targets).item()  # warm-up: allocator, cuBLAS, kernel build
-    step_ms, final_loss = timed_steps(step, tokens, targets, steps)
+    step_ms, final_loss = timed_steps(step, steps, tokens, targets)
 
     tokens_per_sec = batch * seq / (step_ms / 1e3)
     on_card = dev.type == "cuda"

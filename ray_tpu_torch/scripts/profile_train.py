@@ -1,10 +1,15 @@
 """Where a training step's time goes on the GPU.
 
-    python -m ray_tpu_torch.scripts.profile_train [--trace PATH]
+    python -m ray_tpu_torch.scripts.profile_train [--model M] [--trace PATH]
 
-The configuration and step of ``bench_train`` (Llama-3-8B at full width
-and depth, random weights from seed 0, 1 x 2048, remat, CE chunk 1024;
-loss, backward, fused AdamW). After one warm-up step it times ``STEPS``
+``--model llama`` (the default): the configuration and step of
+``bench_train`` (Llama-3-8B at full width and depth, random weights
+from seed 0, 1 x 2048, remat, CE chunk 1024; loss, backward, fused
+AdamW). ``--model vit`` / ``dit``: ``bench_train.setup_vision``'s
+ViT-B/16 at batch 64 or DiT-B/2 at batch 32 (bf16, remat, the same
+AdamW), which ``chip_smoke.py``'s ``vision_train`` and ``dit_train``
+also run. After one warm-up step it
+times ``STEPS``
 steps on the host clock with no profiler, then one window of ``STEPS``
 steps under ``torch.profiler``. Prints one JSON line: step ms, device
 busy ms per step (the sum of kernel times), the device's idle share in
@@ -47,6 +52,8 @@ def _groups(prof, steps: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("llama", "vit", "dit"),
+                    default="llama")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -58,20 +65,31 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA GPU")
-    cfg = LlamaConfig.llama3_8b(ce_chunk_tokens=bt.CE_CHUNK)
-    _params, step, tokens, targets = bt.setup(cfg, bt.BATCH, bt.SEQ)
-    step(tokens, targets).item()  # warm-up
-    step_ms, _ = bt.timed_steps(step, tokens, targets, STEPS)
+    if args.model == "llama":
+        cfg = LlamaConfig.llama3_8b(ce_chunk_tokens=bt.CE_CHUNK)
+        _params, step, tokens, targets = bt.setup(cfg, bt.BATCH, bt.SEQ)
+        inputs = (tokens, targets)
+        fields = dict(batch=bt.BATCH, seq=bt.SEQ,
+                      ce_chunk_tokens=cfg.ce_chunk_tokens)
+    else:
+        cfg, _params, step = bt.setup_vision(args.model)
+        inputs = ()
+        fields = dict(batch=bt.VISION_BATCH[args.model],
+                      seq=cfg.seq_len if args.model == "vit"
+                      else cfg.n_patches)
+    step(*inputs).item()  # warm-up
+    step_ms, _ = bt.timed_steps(step, STEPS, *inputs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled_ms, _ = bt.timed_steps(step, tokens, targets, STEPS)
+        profiled_ms, _ = bt.timed_steps(step, STEPS, *inputs)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     busy_ms, launches, table = _kernel_table(prof, STEPS, TOP_KERNELS)
     print(json.dumps({
-        "window": "train", "device": torch.cuda.get_device_name(0),
-        "n_layers": cfg.n_layers, "batch": bt.BATCH, "seq": bt.SEQ,
-        "ce_chunk_tokens": cfg.ce_chunk_tokens, "step_ms": step_ms,
+        "window": "train", "model": args.model,
+        "device": torch.cuda.get_device_name(0),
+        "n_layers": cfg.n_layers, **fields,
+        "step_ms": step_ms,
         "step_ms_profiled": profiled_ms,
         "device_busy_ms_per_step": busy_ms,
         # unclipped: below 0 means the kernel sum counts something twice

@@ -720,3 +720,160 @@ def test_launch_counts_lose_nothing_across_threads():
     finally:
         sys.setswitchinterval(interval)
     assert wrapper.launches == 8 * 20000
+
+
+# --- the vision and diffusion models' shapes, and the MoE FFN ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,causal", [
+    (8, 197, 12, False),   # ViT-B/16 at 224^2 with its class token
+    (4, 256, 12, False),   # DiT-B/2 on 32 x 32 x 4 latents
+    (8, 77, 8, True),      # the CLIP text tower
+    (2, 77, 8, False), (2, 197, 12, True), (64, 197, 12, False)])
+def test_flash_kernels_at_vision_shapes_on_card(cuda_device, b, s, h,
+                                                causal):
+    """K1-K3 with no GQA group (H = KVH), head_dim 64, ragged lengths."""
+    q, k, v = _rand_qkv(cuda_device, b, s, s, h, h, 64, seed=5)
+    _check_fwd(q, k, v, causal)
+    _check_bwd(q, k, v, torch.randn_like(q), causal)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_head_dim_72_on_card(cuda_device):
+    """DiT-XL/2's head_dim (1152 / 16) has no kernel instance: the flash
+    path raises on the card, forward and under autograd, and the model
+    runs there only with attention="reference"."""
+    from ray_tpu_torch.models import dit as td
+    q = torch.randn((2, 16, 4, 72), device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_attention(q, q, q, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_attention(q.clone().requires_grad_(), q, q, False)
+    cfg = td.DiTConfig.xl_2(n_layers=1, input_size=8)
+    assert cfg.head_dim == 72 and cfg.attention == "flash"
+    params = td.dit_init(0, cfg, device=cuda_device)
+    x = torch.zeros((1, 8, 8, 4), device=cuda_device)
+    t = torch.full((1,), 0.5, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        td.dit_forward(params, x, t, cfg)
+    out = td.dit_forward(params, x, t, dataclasses.replace(
+        cfg, attention="reference"))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["vit", "clip", "dit"])
+def test_vision_models_flash_matches_reference_on_card(cuda_device, family):
+    """One model, bf16 on the card, with attention="flash" (K1-K3) and
+    "reference" from the same weights: the loss within 1e-2 and every
+    grad within 1e-1 relative L2; the kernels launch K1 2L (remat), K2
+    and K3 L times."""
+    from ray_tpu_torch.models import dit as td
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.scripts.bench_train import parameters
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    bf16 = dict(dtype=torch.bfloat16, remat=True)
+    if family == "vit":
+        cfg = tv.ViTConfig.tiny(dim=128, n_heads=2, n_classes=10,
+                                pool="cls", **bf16)
+        params = tv.vit_init(0, cfg, device=cuda_device)
+        images = torch.randn((4, 16, 16, 3), generator=g, device=cuda_device)
+        labels = torch.arange(4, device=cuda_device)
+
+        def loss_fn(p, c):
+            return tv.vit_loss(p, images, labels, c)
+    elif family == "clip":
+        cfg = tv.CLIPConfig.tiny(
+            vision=tv.ViTConfig.tiny(dim=128, n_heads=2, **bf16),
+            text=tv.CLIPTextConfig.tiny(dim=128, n_heads=2, **bf16))
+        params = tv.clip_init(0, cfg, device=cuda_device)
+        images = torch.randn((4, 16, 16, 3), generator=g, device=cuda_device)
+        tokens = torch.randint(0, 128, (4, 16), generator=g,
+                               device=cuda_device)
+
+        def loss_fn(p, c):
+            return tv.clip_loss(p, images, tokens, c)
+    else:
+        cfg = td.DiTConfig.tiny(dim=128, n_heads=2, n_classes=4, **bf16)
+        params = td.dit_init(0, cfg, device=cuda_device)
+        # adaLN-Zero: every modulation and the output projection start
+        # at zero, where most grads are zero; draw them instead
+        for tree, name in ((params["layers"], "mod_w"),
+                           (params["layers"], "mod_b"),
+                           (params, "final_mod_w"), (params, "final_mod_b"),
+                           (params, "final_w")):
+            tree[name] = (0.05 * torch.randn(
+                tree[name].shape, generator=g,
+                device=cuda_device)).bfloat16()
+        x0 = torch.randn((4, 8, 8, 3), generator=g, device=cuda_device)
+        noise = td.draw_dit_noise(g, x0.shape, cuda_device)
+        labels = torch.arange(4, device=cuda_device)
+
+        def loss_fn(p, c):
+            return td.dit_loss(p, noise, x0, c, labels)
+
+    def with_attention(attention):
+        if family == "clip":
+            return dataclasses.replace(
+                cfg, vision=dataclasses.replace(cfg.vision,
+                                                attention=attention),
+                text=dataclasses.replace(cfg.text, attention=attention))
+        return dataclasses.replace(cfg, attention=attention)
+
+    out = {}
+    for attention in ("flash", "reference"):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  parameters(params)]
+        it = iter(leaves)
+
+        def rebuild(tree):
+            if isinstance(tree, dict):
+                return {k: rebuild(v) for k, v in tree.items()}
+            return next(it)
+
+        before = [fn.launches for fn in (
+            tatt.flash_attention, tatt.flash_attention_bwd_dq,
+            tatt.flash_attention_bwd_dkv)]
+        loss = loss_fn(rebuild(params), with_attention(attention))
+        loss.backward()
+        after = [fn.launches for fn in (
+            tatt.flash_attention, tatt.flash_attention_bwd_dq,
+            tatt.flash_attention_bwd_dkv)]
+        out[attention] = (loss.item(), [t.grad for t in leaves],
+                          [a - b for a, b in zip(after, before)])
+    n_layers = 4 if family == "clip" else 2
+    assert out["flash"][2] == [2 * n_layers, n_layers, n_layers]
+    assert out["reference"][2] == [0, 0, 0]
+    assert abs(out["flash"][0] - out["reference"][0]) \
+        <= 1e-2 * abs(out["reference"][0])
+    for got, ref in zip(out["flash"][1], out["reference"][1]):
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, ref).item() <= 1e-1
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_card_matches_cpu(cuda_device):
+    """The MoE layer in f32 on the card and the CPU (TF32 off): the same
+    routing and dispatch, outputs within 1e-5."""
+    from ray_tpu_torch.parallel import moe as tmoe
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 24, 32), generator=g)
+    router = torch.randn((32, 4), generator=g)
+    w1, w3 = (torch.randn((4, 32, 64), generator=g) / 32 ** 0.5
+              for _ in range(2))
+    w2 = torch.randn((4, 64, 32), generator=g) / 8
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = tmoe.top_k_gating(x[0].to(cuda_device), router.to(cuda_device),
+                                2)
+        y, aux = tmoe.moe_ffn(*(t.to(cuda_device) for t in
+                                (x, router, w1, w3, w2)),
+                              capacity_factor=1.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want = tmoe.top_k_gating(x[0], router, 2)
+    assert torch.equal(got[1].cpu(), want[1])
+    y_cpu, aux_cpu = tmoe.moe_ffn(x, router, w1, w3, w2, capacity_factor=1.0)
+    assert (y.cpu() - y_cpu).abs().max().item() <= 1e-5
+    assert abs(aux.item() - aux_cpu.item()) <= 1e-6
