@@ -66,12 +66,16 @@ reference tests' learning bars (``rl_multi_agent``), (10) the vision,
 diffusion and MoE models: ViT-B/16 training at batch 64
 (``vision_train``), a CLIP step with its causal text tower
 (``clip_step``), DiT-B/2 training and DDIM sampling with guidance
-(``dit_train``, ``dit_sample``), 2-layer full-width ViT and DiT loss and
-grads on the card against the CPU (``vision_vs_cpu``) and the engine at
-Mixtral-8x7B width, 8 of its 32 layers (``engine_moe``, with a 1-layer
-prefill and the tiny MoE config against the CPU); phase 3 also holds K1
-at their attention shapes (head_dim 64, H = KVH, S 197, 256 and 77) and
-K2/K3 at the non-causal ones, (11) the kernel list, with each kernel's
+(``dit_train``, ``dit_sample``), the same for DiT-XL/2 at full width and
+depth with its default flash attention at head_dim 72 (``dit_xl_train``,
+``dit_xl_sample``), 2-layer full-width ViT, DiT-B/2 and DiT-XL/2 loss
+and grads on the card against the CPU (``vision_vs_cpu``) and the engine
+at Mixtral-8x7B width, 8 of its 32 layers (``engine_moe``, with a
+1-layer prefill and the tiny MoE config against the CPU); phase 3 also
+holds K1 at their attention shapes (head_dim 64, H = KVH, S 197, 256
+and 77) and K2/K3 at the non-causal ones, and K1-K3 at head_dim 72
+(DIT_XL_ATTENTION: DiT-XL/2 at 256^2 and 512^2, a ragged S full and
+causal, a GQA group), (11) the kernel list, with each kernel's
 launches summed over phases 4-10. The
 backward is also timed whole, as the model calls it (delta, K2, K3 and
 K3's group sum), against SDPA's backward. Every kernel's launch count
@@ -2565,6 +2569,14 @@ def run_rl(dev, card):
 # 32 x 32 x 4 latents, CLIP's text tower
 VISION_ATTENTION = ((64, 197, 12, False), (32, 256, 12, False),
                     (32, 77, 8, True))
+# (batch, seq, heads, KV heads, causal) at DiT-XL/2's head_dim 72, each
+# K1, K2 and K3: 256^2 images (S 256, the headline), 512^2 (S 1024), a
+# ragged S full and causal, and a GQA group of 4 (no DiT config has one:
+# it covers the kernels' GQA paths at this head_dim)
+DIT_XL_HEAD_DIM = 72
+DIT_XL_ATTENTION = ((32, 256, 16, 16, False), (8, 1024, 16, 16, False),
+                    (4, 197, 16, 16, False), (4, 197, 16, 16, True),
+                    (4, 256, 16, 4, False), (4, 197, 16, 4, True))
 VISION_STEPS = 3
 CLIP_BATCH, VS_CPU_BATCH = 32, 4
 DIT_SAMPLES, DIT_SAMPLE_STEPS, DIT_GUIDANCE = 8, 10, 1.5
@@ -2585,6 +2597,20 @@ def check_vision_attention(dev, gen):
             flash_forward_row(dev, gen, b, s, h, h, 64, causal))
         if not causal:
             flash_backward_rows(dev, gen, b, s, h, h, 64, causal, rows)
+    return rows
+
+
+def check_dit_xl_attention(dev, gen):
+    """K1, K2 and K3 at head_dim 72 (DIT_XL_ATTENTION), each against its
+    plain version with the head_dim 64 rows' tolerances and timed beside
+    SDPA."""
+    rows = {"flash_attention": [], "flash_attention_bwd_dq": [],
+            "flash_attention_bwd_dkv": [], "backward": []}
+    for b, s, h, kvh, causal in DIT_XL_ATTENTION:
+        rows["flash_attention"].append(flash_forward_row(
+            dev, gen, b, s, h, kvh, DIT_XL_HEAD_DIM, causal))
+        flash_backward_rows(dev, gen, b, s, h, kvh, DIT_XL_HEAD_DIM, causal,
+                            rows)
     return rows
 
 
@@ -2729,38 +2755,45 @@ def clip_step(dev, shared):
         add_counts(encode_counts, step_counts)
 
 
-def dit_train(dev, shared):
-    """DiT-B/2 (1000 classes, 32 x 32 x 4 latents, bf16, remat) training
-    from its adaLN-Zero init on one seeded batch, with one set of draws
-    (t, eps, label drop) for every step (``bench_train.setup_vision``)."""
+DIT_MODELS = {"dit": "DiT-B/2", "dit_xl": "DiT-XL/2"}
+
+
+def dit_train(dev, shared, model="dit"):
+    """DiT-B/2 (``model="dit"``, head_dim 64) or DiT-XL/2
+    (``"dit_xl"``, head_dim 72, 28 layers), 1000 classes, 32 x 32 x 4
+    latents, bf16, remat, attention="flash": training from its adaLN-Zero
+    init on one seeded batch, with one set of draws (t, eps, label drop)
+    for every step (``bench_train.setup_vision``)."""
     import torch
     from ray_tpu_torch.scripts import bench_train as bt
+    name = f"{model}_train"
     t0 = time.perf_counter()
-    cfg, params, step = bt.setup_vision("dit", dev)
+    cfg, params, step = bt.setup_vision(model, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    check(cfg.attention == "flash", f"{name}: attention {cfg.attention}")
     torch.cuda.reset_peak_memory_stats(dev)
     leaves = bt.parameters(params)
-    fields, counts, timed = train_steps("dit_train", step, leaves,
-                                        cfg.n_layers)
+    fields, counts, timed = train_steps(name, step, leaves, cfg.n_layers)
     for t in leaves:
         t.requires_grad_(False)
-    shared["dit"] = (cfg, params)
-    batch = bt.VISION_BATCH["dit"]
-    return dict(model="DiT-B/2", batch=batch, seq=cfg.n_patches,
-                n_layers=cfg.n_layers, init_s=init_s,
+    shared[model] = (cfg, params)
+    batch = bt.VISION_BATCH[model]
+    return dict(model=DIT_MODELS[model], batch=batch, seq=cfg.n_patches,
+                n_layers=cfg.n_layers, head_dim=cfg.head_dim,
+                params=sum(t.numel() for t in leaves), init_s=init_s,
                 samples_per_s=batch / (timed / 1e3),
                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                 **fields), counts
 
 
-def dit_sample_phase(dev, shared):
+def dit_sample_phase(dev, shared, model="dit"):
     """DDIM sampling of DIT_SAMPLES latents over DIT_SAMPLE_STEPS steps
     with classifier-free guidance (two forwards a step) from the weights
-    dit_train left."""
+    the training phase of ``model`` left."""
     import torch
     from ray_tpu_torch.models import dit_sample, draw_dit_noise
-    cfg, params = shared.pop("dit")
+    cfg, params = shared.pop(model)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
     noise = draw_dit_noise(gen, (DIT_SAMPLES, cfg.input_size,
@@ -2775,12 +2808,13 @@ def dit_sample_phase(dev, shared):
     seconds = time.perf_counter() - t0
     counts = read_counts()
     check(tuple(out.shape) == tuple(noise["eps"].shape)
-          and bool(torch.isfinite(out).all()), "dit_sample: non-finite or "
-          f"misshapen samples {tuple(out.shape)}")
+          and bool(torch.isfinite(out).all()), f"{model} sample: non-finite "
+          f"or misshapen samples {tuple(out.shape)}")
     want = dict(expected_encoder_counts(0),
                 flash_attention=2 * cfg.n_layers * DIT_SAMPLE_STEPS)
-    check(counts == want, f"dit_sample launches {counts} != {want}")
-    return dict(n=DIT_SAMPLES, steps=DIT_SAMPLE_STEPS,
+    check(counts == want, f"{model} sample launches {counts} != {want}")
+    return dict(model=DIT_MODELS[model], n=DIT_SAMPLES,
+                steps=DIT_SAMPLE_STEPS,
                 guidance_scale=DIT_GUIDANCE, max_abs=biggest,
                 step_ms=seconds / DIT_SAMPLE_STEPS * 1e3,
                 samples_per_s=DIT_SAMPLES / seconds), counts
@@ -2808,11 +2842,11 @@ def with_random_adaln(params, seed, std):
 
 
 def vision_vs_cpu(dev, shared):
-    """2-layer full-width ViT-B/16 and DiT-B/2 (random adaLN leaves), loss
-    and grads at batch VS_CPU_BATCH: bf16 on the card through K1-K3
-    against the plain f32 version on the CPU from the same weights and
-    draws, with train_vs_cpu's bars (loss 1e-2, grads 1e-1 relative
-    L2)."""
+    """2-layer full-width ViT-B/16, DiT-B/2 and DiT-XL/2 (random adaLN
+    leaves; DiT-XL/2 at head_dim 72), loss and grads at batch
+    VS_CPU_BATCH: bf16 on the card through K1-K3 against the plain f32
+    version on the CPU from the same weights and draws, with
+    train_vs_cpu's bars (loss 1e-2, grads 1e-1 relative L2)."""
     import numpy as np
     import torch
     from ray_tpu_torch.models import (
@@ -2826,29 +2860,38 @@ def vision_vs_cpu(dev, shared):
     ).astype(np.float32))
     vit_labels = torch.from_numpy(rng.integers(0, 1000, VS_CPU_BATCH))
     dit = DiTConfig.b_2(n_classes=1000, n_layers=2)
+    dit_xl = DiTConfig.xl_2(n_classes=1000, n_layers=2)
     shape = (VS_CPU_BATCH, dit.input_size, dit.input_size, dit.channels)
     x0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     dit_labels = torch.from_numpy(rng.integers(0, 1000, VS_CPU_BATCH))
     gen = torch.Generator()
     gen.manual_seed(SEED + 5)
     noise = draw_dit_noise(gen, shape, "cpu")
+
+    def dit_loss_fn(p, c, d):
+        return dit_loss(p, {k: t.to(d) for k, t in noise.items()},
+                        x0.to(d), c, dit_labels.to(d))
+
+    def dit_params(cfg):
+        return with_random_adaln(unstack_layers(dit_init(
+            SEED, dataclasses.replace(cfg, dtype=torch.float32), "cpu")),
+            SEED + 6, ADALN_STD)
+
+    dit_top = ("patch_embed", "time_w1", "label_embed", "final_w")
+    dit_stacked = ("wq", "w2", "mod_w")
     models = {
         "vit": (vit, unstack_layers(vit_init(
             SEED, dataclasses.replace(vit, dtype=torch.float32), "cpu")),
             lambda p, c, d: vit_loss(p, images.to(d), vit_labels.to(d), c),
             ("patch_embed", "pos_embed", "head_w"), ("wq", "wv", "w1",
                                                      "w2")),
-        "dit": (dit, with_random_adaln(unstack_layers(dit_init(
-            SEED, dataclasses.replace(dit, dtype=torch.float32), "cpu")),
-            SEED + 6, ADALN_STD),
-            lambda p, c, d: dit_loss(
-                p, {k: t.to(d) for k, t in noise.items()}, x0.to(d), c,
-                dit_labels.to(d)),
-            ("patch_embed", "time_w1", "label_embed", "final_w"),
-            ("wq", "w2", "mod_w")),
+        "dit": (dit, dit_params(dit), dit_loss_fn, dit_top, dit_stacked),
+        "dit_xl": (dit_xl, dit_params(dit_xl), dit_loss_fn, dit_top,
+                   ("wq", "wk", "wv", "wo", "w2", "mod_w")),
     }
     out, total = {}, None
     for name, (cfg, params_cpu, loss_fn, top, stacked) in models.items():
+        check(cfg.attention == "flash", f"{name}: attention {cfg.attention}")
         def loss_and_grads(params, c, device):
             for t in parameters(params):
                 t.requires_grad_(True)
@@ -3009,6 +3052,10 @@ def run_models(dev):
     for name, fn in (("vision_train", vision_train),
                      ("clip_step", clip_step), ("dit_train", dit_train),
                      ("dit_sample", dit_sample_phase),
+                     ("dit_xl_train", functools.partial(dit_train,
+                                                        model="dit_xl")),
+                     ("dit_xl_sample", functools.partial(
+                         dit_sample_phase, model="dit_xl")),
                      ("vision_vs_cpu", vision_vs_cpu),
                      ("engine_moe", engine_moe)):
         t0 = time.perf_counter()
@@ -3059,6 +3106,7 @@ def main() -> int:
               "rms_norm": check_rms_norm(dev, gen),
               "int8_matmul": check_int8_matmul(dev, gen)}
     vision_checks = check_vision_attention(dev, gen)
+    dit_xl_checks = check_dit_xl_attention(dev, gen)
 
     rng = __import__("numpy").random.default_rng(SEED)
     prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
@@ -3114,7 +3162,8 @@ def main() -> int:
     kernels = []
     for kname, (src, replaces, headline) in sources.items():
         row = checks[kname][headline]
-        shapes = checks[kname] + vision_checks.get(kname, [])
+        shapes = (checks[kname] + vision_checks.get(kname, [])
+                  + dit_xl_checks.get(kname, []))
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
             launches=(counts_bf16[kname] + counts_int8[kname]
@@ -3129,8 +3178,9 @@ def main() -> int:
             shapes=shapes))
     # the whole backward as the model calls it, beside K2's row (whose
     # library_ms is SDPA's whole backward)
-    kernels[1]["whole_backward"] = checks["backward"] + \
-        vision_checks["backward"]
+    kernels[1]["whole_backward"] = (checks["backward"]
+                                    + vision_checks["backward"]
+                                    + dit_xl_checks["backward"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,10 @@ caller can hand them any draws (the tests replay ``jax.random``'s).
 
 Kernels on this path: with ``attention="flash"`` each block's attention
 is K1 on the card (non-causal) and, under autograd, K2 and K3
-(ops/attention.py). On the card the kernels take head_dim 64 or 128:
-DiT-B/2 (768 / 12) runs them; DiT-XL/2 (1152 / 16 = 72) raises there
-unless the config says ``attention="reference"``. LayerNorm, the
-modulation, GELU and the timestep features are PyTorch ops (jnp in the
-reference), and the products ``torch.matmul``.
+(ops/attention.py): DiT-B/2 at head_dim 64 (768 / 12), DiT-XL/2 at 72
+(1152 / 16). LayerNorm, the modulation, GELU and the timestep features
+are PyTorch ops (jnp in the reference), and the products
+``torch.matmul``.
 """
 
 from __future__ import annotations

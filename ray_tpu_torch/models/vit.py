@@ -14,7 +14,7 @@ is K1 on the card (non-causal in the image tower, causal in the text
 tower) and, under autograd, K2 and K3 in the backward
 (ops/attention.py); ``"reference"`` runs the plain attention, as the
 reference's config choice does. On the card the kernels take head_dim
-64 or 128 and raise otherwise. LayerNorm, the tanh GELU and the
+64, 72 or 128 and raise otherwise. LayerNorm, the tanh GELU and the
 patchify reshapes are PyTorch ops (jnp in the reference, with no Pallas
 twin), and the products are ``torch.matmul``.
 """

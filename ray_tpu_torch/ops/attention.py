@@ -13,6 +13,10 @@ When grad is needed, :func:`flash_attention` goes through
 reference's ``custom_vjp`` does; under ``no_grad`` it runs the forward
 alone.
 
+The kernels take head_dim 64, 72 (DiT-XL/2) and 128; 72 runs in tiles
+of 128 columns whose last 56 TMA fills with zeros (csrc/attention.cu).
+Any other head_dim raises on a CUDA tensor.
+
 Layout: [batch, seq, heads, head_dim], as in the reference. Unlike the
 reference, K/V may carry fewer heads than Q (GQA): head h reads KV head
 h // (H // KVH), which is what the reference's ``jnp.repeat`` of K/V
@@ -163,9 +167,9 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} do not match")
     if h % kvh:
         raise ValueError(f"{h} query heads do not group over {kvh} KV heads")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes head_dim 64 or "
-                         f"128, not {d}")
+    if d not in (64, 72, 128):
+        raise ValueError(f"flash_attention kernel takes head_dim 64, 72 "
+                         f"or 128, not {d}")
     if causal and sk < sq:
         raise ValueError("causal flash_attention needs Sk >= Sq")
     named = [("q", q), ("k", k), ("v", v)]

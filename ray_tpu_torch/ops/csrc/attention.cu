@@ -32,6 +32,13 @@
 // faster at S 128-2048). The launch plan (attention._fwd_plan) sets the
 // grid and the query tile order, heaviest first under the causal mask,
 // where the last query tiles see the most keys.
+//
+// Head dims. The tiles are D = 64 or 128 columns wide; the tensors' head
+// dim DT may be narrower (DT 72, DiT-XL/2's 1152 / 16, runs in D 128
+// tiles). The tensor maps declare DT columns, so TMA fills columns DT ..
+// D - 1 of every tile with zeros: they add nothing to Q K^T, and P V
+// leaves them 0 in O, which is never stored past DT. Q K^T runs only the
+// (DT + 15) / 16 k steps that hold a live column (5 of 8 at DT 72).
 #include "common.cuh"
 
 namespace {
@@ -73,7 +80,7 @@ struct Fwd {
 
 // Block i takes query tile first + step * (i / (H B)), head i % H and
 // batch i / H % B (the plan's order).
-template <int D>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -81,7 +88,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                      bf16* __restrict__ o, float* __restrict__ lse, int B,
                      int H, int KVH, int Sq, int Sk, int causal,
                      float sm_scale, int first, int step) {
+  static_assert(DT <= D && DT % 8 == 0, "head dim within the tile");
   using L = Fwd<D>;
+  constexpr int kSteps = (DT + 15) / 16;  // k steps of Q K^T
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -157,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     rt::wgmma_ss_n64_first(sc, kmajor<kRows>(qw_sm, 0, 0),
                            kmajor<kKeys>(k_sm, 0, 0));
 #pragma unroll
-    for (int kk = 1; kk < D / 16; ++kk)
+    for (int kk = 1; kk < kSteps; ++kk)
       rt::wgmma_ss_n64(sc, kmajor<kRows>(qw_sm, 0, kk),
                        kmajor<kKeys>(k_sm, 0, kk));
     rt::wgmma_commit();
@@ -230,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
 
   // O through the Q tile (no wgmma reads it any more), 16-byte chunks
-  // swizzled by row, then whole rows out
+  // swizzled by row, then whole rows of DT columns out
   unsigned char* ow = smem + L::kQ;
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
@@ -244,14 +253,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         rt::pack_bf16(acc[i] * inv, acc[i + 1] * inv);
   }
   rt::named_sync(1, 128);
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kChunks = DT / 8;  // 16-byte chunks per row
 #pragma unroll
   for (int c = tid; c < kRows * kChunks; c += 128) {
     const int row = c / kChunks, col = (c % kChunks) * 8;
     const int chunk = (col % 64) / 8;
     if (q0 + row < Sq)
       *reinterpret_cast<uint4*>(
-          o + ((static_cast<int64_t>(b) * Sq + q0 + row) * H + h) * D + col) =
+          o + ((static_cast<int64_t>(b) * Sq + q0 + row) * H + h) * DT +
+          col) =
           *reinterpret_cast<const uint4*>(ow + (col / 64) * kRows * 128 +
                                           row * 128 +
                                           ((chunk ^ (row & 7)) * 16));
@@ -272,22 +282,22 @@ __global__ void no_key_kernel(bf16* __restrict__ o, float* __restrict__ lse,
   if (i < n_lse) lse[i] = kNegInf;
 }
 
-template <int D>
+template <int D, int DT>
 int launch(const void* q, const void* k, const void* v, bf16* op, float* lp,
            int64_t B, int64_t H, int64_t KVH, int64_t Sq, int64_t Sk,
            const int64_t* st, int causal, float sm_scale, int64_t blocks,
            int first, int step, cudaStream_t s) {
   using L = Fwd<D>;
   CUtensorMap tq, tk, tv;
-  if (!rt::make_map_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], kRows) ||
-      !rt::make_map_bshd(&tk, k, B, Sk, KVH, D, st[3], st[4], st[5], kKeys) ||
-      !rt::make_map_bshd(&tv, v, B, Sk, KVH, D, st[6], st[7], st[8], kKeys))
+  if (!rt::make_map_bshd(&tq, q, B, Sq, H, DT, st[0], st[1], st[2], kRows) ||
+      !rt::make_map_bshd(&tk, k, B, Sk, KVH, DT, st[3], st[4], st[5], kKeys) ||
+      !rt::make_map_bshd(&tv, v, B, Sk, KVH, DT, st[6], st[7], st[8], kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kThreads, L::kBytes,
+  flash_fwd_kernel<D, DT><<<static_cast<unsigned>(blocks), kThreads, L::kBytes,
                         s>>>(
       tq, tk, tv, op, lp, static_cast<int>(B), static_cast<int>(H),
       static_cast<int>(KVH), static_cast<int>(Sq), static_cast<int>(Sk),
@@ -300,7 +310,8 @@ int launch(const void* q, const void* k, const void* v, bf16* op, float* lp,
 // q: [B, Sq, H, D], k/v: [B, Sk, KVH, D] bf16 through strides (in
 // elements, batch / seq / head; the last dim contiguous, strides
 // multiples of 8 and 16-byte aligned bases, checked by the wrapper).
-// o: [B, Sq, H, D] contiguous bf16; lse: [B, H, Sq] f32. D is 64 or 128.
+// o: [B, Sq, H, D] contiguous bf16; lse: [B, H, Sq] f32. D is 64, 72 or
+// 128.
 // The launch plan: blocks, one per (64-row query tile, head, batch), and
 // the query tile order, first_tile + tile_step * i for i = 0, 1, ...
 // (tile_step 1 from tile 0, or -1 from the last tile).
@@ -332,10 +343,13 @@ RT_EXPORT int rt_flash_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   if (D == 128)
-    return launch<128>(q, k, v, op, lp, B, H, KVH, Sq, Sk, st, causal,
-                       sm_scale, blocks, first_tile, tile_step, s);
+    return launch<128, 128>(q, k, v, op, lp, B, H, KVH, Sq, Sk, st, causal,
+                            sm_scale, blocks, first_tile, tile_step, s);
+  if (D == 72)
+    return launch<128, 72>(q, k, v, op, lp, B, H, KVH, Sq, Sk, st, causal,
+                           sm_scale, blocks, first_tile, tile_step, s);
   if (D == 64)
-    return launch<64>(q, k, v, op, lp, B, H, KVH, Sq, Sk, st, causal,
-                      sm_scale, blocks, first_tile, tile_step, s);
+    return launch<64, 64>(q, k, v, op, lp, B, H, KVH, Sq, Sk, st, causal,
+                          sm_scale, blocks, first_tile, tile_step, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

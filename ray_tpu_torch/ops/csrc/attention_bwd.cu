@@ -49,6 +49,13 @@
 // thread-block cluster per group summing through distributed shared
 // memory, and the group's last block (by an integer ticket) summing the
 // partials from L2, which is the kernel's tail when the grid is one wave.
+//
+// Head dims. As in K1 (attention.cu): the tiles are D = 64 or 128 columns
+// wide and the tensors' head dim DT may be narrower (DT 72 in D 128
+// tiles). TMA fills columns DT .. D - 1 with zeros, so S = Q K^T and
+// dP = dO V^T, which run only the (DT + 15) / 16 k steps that hold a
+// live column, are exact, and dQ, dK, dV (and the GQA partials) come out
+// 0 there and are stored only up to DT.
 #include "common.cuh"
 
 namespace {
@@ -94,7 +101,7 @@ __device__ __forceinline__ int dq_tiles(int q0, int Sq, int Sk, int causal) {
   return (kv_end + kK2 - 1) / kK2;
 }
 
-template <int D>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -104,7 +111,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ delta,
                         bf16* __restrict__ dq, int B, int H, int KVH, int Sq,
                         int Sk, int causal, float sm_scale) {
+  static_assert(DT <= D && DT % 8 == 0, "head dim within the tile");
   using L = DqSmem<D>;
+  constexpr int kSteps = (DT + 15) / 16;  // k steps of S and dP
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -193,14 +202,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       rt::wgmma_ss_n64_first(s_acc, kmajor<kQ2>(qw_sm, 0, 0),
                              kmajor<kK2>(k_sm, 0, 0));
 #pragma unroll
-      for (int kk = 1; kk < D / 16; ++kk)
+      for (int kk = 1; kk < kSteps; ++kk)
         rt::wgmma_ss_n64(s_acc, kmajor<kQ2>(qw_sm, 0, kk),
                          kmajor<kK2>(k_sm, 0, kk));
       rt::wgmma_commit();
       rt::wgmma_ss_n64_first(dp_acc, kmajor<kQ2>(dw_sm, 0, 0),
                              kmajor<kK2>(v_sm, 0, 0));
 #pragma unroll
-      for (int kk = 1; kk < D / 16; ++kk)
+      for (int kk = 1; kk < kSteps; ++kk)
         rt::wgmma_ss_n64(dp_acc, kmajor<kQ2>(dw_sm, 0, kk),
                          kmajor<kK2>(v_sm, 0, kk));
       rt::wgmma_commit();
@@ -251,9 +260,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; i += 2) {
     const int row = (i & 2) ? r1 : r0;
     const int c = 8 * (i / 4) + 2 * (lane % 4);
-    if (row < Sq)
+    if (row < Sq && c < DT)
       *reinterpret_cast<uint32_t*>(
-          dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D + c) =
+          dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * DT + c) =
           rt::pack_bf16(acc[i], acc[i + 1]);
   }
 }
@@ -282,7 +291,7 @@ __device__ __forceinline__ int dkv_q_start(int k0, int Sq, int Sk,
   return first / kQ3 * kQ3;
 }
 
-template <int D>
+template <int D, int DT>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -294,7 +303,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                          float* __restrict__ pk, float* __restrict__ pv,
                          int B, int H, int KVH, int Sq, int Sk, int causal,
                          float sm_scale) {
+  static_assert(DT <= D && DT % 8 == 0, "head dim within the tile");
   using L = DkvSmem<D>;
+  constexpr int kSteps = (DT + 15) / 16;  // k steps of S^T and dP^T
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -396,14 +407,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       rt::wgmma_ss_n64_first(st, kmajor<kK3>(kw_sm, 0, 0),
                              kmajor<kQ3>(q_sm, 0, 0));
 #pragma unroll
-      for (int kk = 1; kk < D / 16; ++kk)
+      for (int kk = 1; kk < kSteps; ++kk)
         rt::wgmma_ss_n64(st, kmajor<kK3>(kw_sm, 0, kk),
                          kmajor<kQ3>(q_sm, 0, kk));
       rt::wgmma_commit();
       rt::wgmma_ss_n64_first(dpt, kmajor<kK3>(vw_sm, 0, 0),
                              kmajor<kQ3>(do_sm, 0, 0));
 #pragma unroll
-      for (int kk = 1; kk < D / 16; ++kk)
+      for (int kk = 1; kk < kSteps; ++kk)
         rt::wgmma_ss_n64(dpt, kmajor<kK3>(vw_sm, 0, kk),
                          kmajor<kQ3>(do_sm, 0, kk));
       rt::wgmma_commit();
@@ -484,17 +495,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; i += 2) {
     const int key = key0 + ((i & 2) ? 8 : 0);
     const int c = 8 * (i / 4) + 2 * (lane % 4);
-    if (key >= Sk) continue;
+    if (key >= Sk || c >= DT) continue;
     if (n_rep == 1) {
       const int64_t o =
-          ((static_cast<int64_t>(b) * Sk + key) * KVH + kvh) * D + c;
+          ((static_cast<int64_t>(b) * Sk + key) * KVH + kvh) * DT + c;
       *reinterpret_cast<uint32_t*>(dk + o) =
           rt::pack_bf16(dk_acc[i], dk_acc[i + 1]);
       *reinterpret_cast<uint32_t*>(dv + o) =
           rt::pack_bf16(dv_acc[i], dv_acc[i + 1]);
     } else {
       const int64_t o =
-          ((static_cast<int64_t>(b) * Sk + key) * H + h) * D + c;
+          ((static_cast<int64_t>(b) * Sk + key) * H + h) * DT + c;
       *reinterpret_cast<float2*>(pk + o) =
           make_float2(dk_acc[i], dk_acc[i + 1]);
       *reinterpret_cast<float2*>(pv + o) =
@@ -550,43 +561,43 @@ bool make_maps(Maps* m, const void* q, const void* k, const void* v,
                            st[11], q_rows);
 }
 
-template <int D>
+template <int D, int DT>
 int launch_dq(const Maps& m, cudaStream_t s, const float* lp,
               const float* dlp, bf16* dqp, int64_t B, int64_t H, int64_t KVH,
               int64_t Sq, int64_t Sk, int causal, float sm_scale) {
   constexpr int smem = DqSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_kernel<D, DT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((Sq + kQ2 - 1) / kQ2 * H * B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, s>>>(
+  flash_bwd_dq_kernel<D, DT><<<grid, kThreads, smem, s>>>(
       m.q, m.k, m.v, m.dout, lp, dlp, dqp, static_cast<int>(B),
       static_cast<int>(H), static_cast<int>(KVH), static_cast<int>(Sq),
       static_cast<int>(Sk), causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DT>
 int launch_dkv(const Maps& m, cudaStream_t s, const float* lp,
                const float* dlp, bf16* dkp, bf16* dvp, float* pk, float* pv,
                int64_t B, int64_t H, int64_t KVH, int64_t Sq, int64_t Sk,
                int causal, float sm_scale) {
   constexpr int smem = DkvSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dkv_kernel<D, DT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((Sk + kK3 - 1) / kK3 * H * B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, s>>>(
+  flash_bwd_dkv_kernel<D, DT><<<grid, kThreads, smem, s>>>(
       m.q, m.k, m.v, m.dout, lp, dlp, dkp, dvp, pk, pv, static_cast<int>(B),
       static_cast<int>(H), static_cast<int>(KVH), static_cast<int>(Sq),
       static_cast<int>(Sk), causal, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || H == KVH) return static_cast<int>(err);
-  const int64_t n4 = B * Sk * KVH * D / 4;
+  const int64_t n4 = B * Sk * KVH * DT / 4;
   gqa_sum_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, s>>>(
-      pk, pv, dkp, dvp, n4, static_cast<int>(H / KVH), static_cast<int>(D));
+      pk, pv, dkp, dvp, n4, static_cast<int>(H / KVH), DT);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,7 +614,7 @@ bool sizes_ok(int64_t B, int64_t H, int64_t Sq, int64_t Sk) {
 // (in elements, batch / seq / head; the last dim contiguous, strides
 // multiples of 8 and 16-byte aligned bases, checked by the wrapper).
 // lse, delta: [B, H, Sq] f32 contiguous. dq: [B, Sq, H, D] contiguous
-// bf16. D is 64 or 128.
+// bf16. D is 64, 72 or 128.
 RT_EXPORT int rt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int64_t B, int64_t H,
@@ -616,7 +627,7 @@ RT_EXPORT int rt_flash_attention_bwd_dq(
   if (Sk == 0)  // no key: dq is 0
     return static_cast<int>(
         cudaMemsetAsync(dq, 0, B * Sq * H * D * sizeof(bf16), s));
-  if ((D != 64 && D != 128) || !sizes_ok(B, H, Sq, Sk))
+  if ((D != 64 && D != 72 && D != 128) || !sizes_ok(B, H, Sq, Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                           vsb, vss, vsh, dsb, dss, dsh};
@@ -627,10 +638,13 @@ RT_EXPORT int rt_flash_attention_bwd_dq(
   const auto* dlp = static_cast<const float*>(delta);
   auto* dqp = static_cast<bf16*>(dq);
   if (D == 128)
-    return launch_dq<128>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
-                          sm_scale);
-  return launch_dq<64>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
-                       sm_scale);
+    return launch_dq<128, 128>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
+                               sm_scale);
+  if (D == 72)
+    return launch_dq<128, 72>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
+                              sm_scale);
+  return launch_dq<64, 64>(m, s, lp, dlp, dqp, B, H, KVH, Sq, Sk, causal,
+                           sm_scale);
 }
 
 // Same inputs as rt_flash_attention_bwd_dq; dk, dv: [B, Sk, KVH, D]
@@ -653,7 +667,7 @@ RT_EXPORT int rt_flash_attention_bwd_dkv(
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, n, s);
     return static_cast<int>(err);
   }
-  if ((D != 64 && D != 128) || !sizes_ok(B, H, Sq, Sk) ||
+  if ((D != 64 && D != 72 && D != 128) || !sizes_ok(B, H, Sq, Sk) ||
       (H != KVH && (pk == nullptr || pv == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[12] = {qsb, qss, qsh, ksb, kss, ksh,
@@ -668,8 +682,11 @@ RT_EXPORT int rt_flash_attention_bwd_dkv(
   auto* pkp = static_cast<float*>(pk);
   auto* pvp = static_cast<float*>(pv);
   if (D == 128)
-    return launch_dkv<128>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH, Sq,
-                           Sk, causal, sm_scale);
-  return launch_dkv<64>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH, Sq, Sk,
-                        causal, sm_scale);
+    return launch_dkv<128, 128>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH,
+                                Sq, Sk, causal, sm_scale);
+  if (D == 72)
+    return launch_dkv<128, 72>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH,
+                               Sq, Sk, causal, sm_scale);
+  return launch_dkv<64, 64>(m, s, lp, dlp, dkp, dvp, pkp, pvp, B, H, KVH, Sq,
+                            Sk, causal, sm_scale);
 }

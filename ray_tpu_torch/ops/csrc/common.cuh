@@ -411,7 +411,8 @@ inline EncodeTiledFn encode_tiled_fn() {
 // A 4-D map over a bf16 [B, S, H, D] tensor with element strides
 // (sb, ss, sh) and a contiguous last dim, read in boxes of `rows` x 64
 // (a 128-byte row, the swizzle's width) with 128-byte swizzle; rows past
-// S read as zeros. Returns false if the map is refused.
+// S, and columns past D in a tile wider than D (head dim 72 in tiles of
+// 128 columns), read as zeros. Returns false if the map is refused.
 inline bool make_map_bshd(CUtensorMap* map, const void* base, int64_t B,
                           int64_t S, int64_t H, int64_t D, int64_t sb,
                           int64_t ss, int64_t sh, int rows) {

@@ -1,7 +1,7 @@
-"""Times K1, K4 and K5 at the serving and training paths' shapes.
+"""Times K1-K5 at the serving and training paths' shapes.
 
     python -m ray_tpu_torch.scripts.bench_kernels [--tag NAME]
-        [--only k1|k4|k5]
+        [--only k1|k4|k5|heads]
 
 Run from the root of a checkout (it uses ``chip_smoke.py``'s cold-L2
 CUDA-graph timer, call timer and bounds). K1 (``flash_attention``, B1
@@ -16,7 +16,11 @@ also times K4 and ``F.rms_norm`` behind the residual add that precedes
 them in the model (``after_add_ms``, beside the add's own ``add_ms``).
 In a tree with this K4 (its C entry and plan), K4 is also timed under
 the other plans of K4_SWEEP and its host time is taken apart (a parent
-tree skips both). Each row is checked
+tree skips both). ``heads``: K1, K2 and K3 (full mask, H = KVH 16) at
+DiT-XL/2's attention shapes, B32 S256 and B8 S1024, at head_dim 64, 72
+and 128, each beside its own bound, with ``_delta`` (the backward's
+rowsum(dO O)): what the D 72 instance's 128-wide tiles cost against the
+true width. Each row is checked
 against the plain version and printed as one JSON line tagged with
 ``--tag``, so that two trees (say a parent and a change) can be run in
 turns within one call and compared. Needs a CUDA GPU.
@@ -34,6 +38,9 @@ import sys
 import time
 
 K1_SEQS = (128, 512, 1024, 2048)
+# (batch, seq) of DiT-XL/2's attention at 256^2 and 512^2, 16 heads
+HEADS_SHAPES = ((32, 256), (8, 1024))
+HEAD_DIMS = (64, 72, 128)
 K4_ROWS = (8, 32, 128, 512, 1024, 2048)
 # K4 plans timed beside the chosen one at d 4096 in bf16: (threads per
 # row, slots per thread)
@@ -62,6 +69,46 @@ def bench_k1(cs, dev, gen, emit):
         emit(kernel="SDPA", seq=s, ms=cs.time_ms(
             lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
             qt, kt, vt))
+
+
+def bench_heads(cs, dev, gen, emit):
+    import torch
+    from ray_tpu_torch.ops import attention as att
+    h = 16
+    for b, s in HEADS_SHAPES:
+        for d in HEAD_DIMS:
+            q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                       device=dev).bfloat16()
+                           for _ in range(4))
+            o, lse = att._flash_forward(q, k, v, False)
+            delta = att._delta(o, do)
+            args = (q, k, v, do, lse, delta, False)
+            ref = att._attention_reference(q, k, v, False)
+            torch.cuda.synchronize()
+            pairs = b * h * s * s
+            qkv_bytes = 2 * b * s * h * d
+            rows = (
+                ("K1", att.flash_attention, (q, k, v, False),
+                 4 * qkv_bytes + 4 * b * h * s, 4.0 * d * pairs),
+                ("K2", att.flash_attention_bwd_dq, args,
+                 5 * qkv_bytes + 8 * b * h * s, 6.0 * d * pairs),
+                ("K3", att.flash_attention_bwd_dkv, args,
+                 6 * qkv_bytes + 8 * b * h * s, 8.0 * d * pairs),
+                ("delta", att._delta, (o, do), 2 * qkv_bytes + 4 * b * h * s,
+                 2.0 * b * s * h * d))
+            for name, fn, fn_args, nbytes, flops in rows:
+                bms, by = cs.bound_ms(nbytes, flops,
+                                      cs.F32_FLOPS if name == "delta"
+                                      else cs.BF16_TENSOR_FLOPS)
+                fields = dict(kernel=name, shape=[b, s, h, h, d],
+                              ms=cs.time_ms(fn, *fn_args), bound_ms=bms,
+                              bound_by=by)
+                if name == "K1":
+                    fields["max_abs_err"] = (o.float()
+                                             - ref.float()).abs().max().item()
+                emit(**fields)
+            del q, k, v, do, o, lse, delta, args, ref
+            torch.cuda.empty_cache()
 
 
 def host_us(fn, iters: int = 2000) -> float:
@@ -220,7 +267,8 @@ def bench_k5(cs, dev, gen, emit):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--only", choices=("k1", "k4", "k5"), default=None)
+    ap.add_argument("--only", choices=("k1", "k4", "k5", "heads"),
+                    default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -241,6 +289,8 @@ def main() -> int:
         bench_k4(cs, dev, gen, emit)
     if args.only in (None, "k5"):
         bench_k5(cs, dev, gen, emit)
+    if args.only in (None, "heads"):
+        bench_heads(cs, dev, gen, emit)
     return 0
 
 

@@ -99,14 +99,16 @@ def setup(cfg: LlamaConfig, batch: int, seq: int, device: DeviceLike = None):
     return params, make_train_step(cfg, params), tokens, targets
 
 
-# images (ViT-B/16) or latents (DiT-B/2) per step of setup_vision
-VISION_BATCH = {"vit": 64, "dit": 32}
+# images (ViT-B/16) or latents (DiT-B/2, DiT-XL/2) per step of
+# setup_vision
+VISION_BATCH = {"vit": 64, "dit": 32, "dit_xl": 32}
 
 
 def setup_vision(model: str, device: DeviceLike = None):
     """A vision model's training state -> ``(cfg, params, step)``:
-    ViT-B/16 (224^2, class token, 1000 classes) or DiT-B/2 (1000
-    classes, 32 x 32 x 4 latents), bf16 with remat, at
+    ViT-B/16 (224^2, class token, 1000 classes), DiT-B/2 or DiT-XL/2
+    (``"dit_xl"``: head_dim 72, 28 layers) at 1000 classes on 32 x 32 x 4
+    latents (256^2 images), bf16 with remat, at
     ``VISION_BATCH[model]``; weights from seed 0 with the layers
     unstacked, one fixed batch (and DiT's draws: t, eps, label drop) from
     seed 1, and ``step() -> loss``, the :func:`make_step` over it."""
@@ -124,9 +126,10 @@ def setup_vision(model: str, device: DeviceLike = None):
         labels = labels_of()
         return cfg, params, make_step(
             params, lambda: vit_loss(params, images, labels, cfg))
-    if model != "dit":
+    if model not in ("dit", "dit_xl"):
         raise ValueError(f"unknown vision model {model!r}")
-    cfg = DiTConfig.b_2(n_classes=1000)
+    cfg = (DiTConfig.b_2 if model == "dit" else DiTConfig.xl_2)(
+        n_classes=1000)
     params = unstack_layers(dit_init(0, cfg, dev))
     shape = (batch, cfg.input_size, cfg.input_size, cfg.channels)
     x0 = torch.randn(shape, generator=gen, device=dev)

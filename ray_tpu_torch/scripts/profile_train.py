@@ -5,9 +5,10 @@
 ``--model llama`` (the default): the configuration and step of
 ``bench_train`` (Llama-3-8B at full width and depth, random weights
 from seed 0, 1 x 2048, remat, CE chunk 1024; loss, backward, fused
-AdamW). ``--model vit`` / ``dit``: ``bench_train.setup_vision``'s
-ViT-B/16 at batch 64 or DiT-B/2 at batch 32 (bf16, remat, the same
-AdamW), which ``chip_smoke.py``'s ``vision_train`` and ``dit_train``
+AdamW). ``--model vit`` / ``dit`` / ``dit_xl``:
+``bench_train.setup_vision``'s ViT-B/16 at batch 64, DiT-B/2 or
+DiT-XL/2 at batch 32 (bf16, remat, the same AdamW), which
+``chip_smoke.py``'s ``vision_train``, ``dit_train`` and ``dit_xl_train``
 also run. After one warm-up step it
 times ``STEPS``
 steps on the host clock with no profiler, then one window of ``STEPS``
@@ -52,7 +53,7 @@ def _groups(prof, steps: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("llama", "vit", "dit"),
+    ap.add_argument("--model", choices=("llama", "vit", "dit", "dit_xl"),
                     default="llama")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)

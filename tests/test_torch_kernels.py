@@ -59,7 +59,9 @@ def _live_pairs(q_rows, k_cols, sq, sk, causal):
                if j < sk and (not causal or j <= i + off))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+# 72: the partials keep the tensors' head_dim, not the kernel's 128-wide
+# tile
+@pytest.mark.parametrize("d", [64, 72, 128])
 @pytest.mark.parametrize("s", [1, 63, 200, 2048])
 @pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2), (28, 4),
                                    (32, 4), (32, 2)])  # groups 1-16
@@ -739,23 +741,99 @@ def test_flash_kernels_at_vision_shapes_on_card(cuda_device, b, s, h,
 
 
 @pytest.mark.cuda
-def test_flash_attention_refuses_head_dim_72_on_card(cuda_device):
-    """DiT-XL/2's head_dim (1152 / 16) has no kernel instance: the flash
-    path raises on the card, forward and under autograd, and the model
+@pytest.mark.parametrize("b,s,h,kvh,causal", [
+    (32, 256, 16, 16, False),   # DiT-XL/2 at 256^2
+    (8, 1024, 16, 16, False),   # DiT-XL/2 at 512^2
+    (4, 197, 16, 16, False), (4, 197, 16, 16, True),   # ragged S
+    (4, 256, 16, 4, False), (4, 197, 16, 4, True),     # GQA group 4
+    (2, 63, 4, 1, True), (2, 1, 4, 4, False)])
+def test_flash_kernels_at_head_dim_72_on_card(cuda_device, b, s, h, kvh,
+                                              causal):
+    """K1-K3 at DiT-XL/2's head_dim (1152 / 16) against their plain
+    versions, with the head_dim 64 and 128 rows' tolerances. The tiles
+    are 128 columns wide, TMA fills columns 72-127 with zeros and the
+    stores write only the 72 of each head: a head's padding written into
+    its neighbour would show as an error in every head but the last."""
+    q, k, v = _rand_qkv(cuda_device, b, s, s, h, kvh, 72, seed=6)
+    out, _ = _check_fwd(q, k, v, causal)
+    assert out.shape == (b, s, h, 72)
+    _check_bwd(q, k, v, torch.randn_like(q), causal)
+
+
+@pytest.mark.cuda
+def test_dit_xl_layer_through_flash_on_card(cuda_device):
+    """One DiT-XL/2 layer (1152 wide, 16 heads of 72) at 32 x 32 x 4
+    latents, bf16 with remat, through the flash path: exactly K1 twice
+    (forward and recompute), K2 and K3 once; the loss within 1e-2 and
+    every grad within 1e-1 relative L2 of attention="reference" from the
+    same weights and draws."""
+    from ray_tpu_torch.models import dit as td
+    from ray_tpu_torch.scripts.bench_train import parameters
+    cfg = td.DiTConfig.xl_2(n_layers=1, n_classes=10)
+    assert cfg.head_dim == 72 and cfg.attention == "flash" and cfg.remat
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = td.dit_init(0, cfg, device=cuda_device)
+    for tree, name in ((params["layers"], "mod_w"),
+                       (params["layers"], "mod_b"),
+                       (params, "final_mod_w"), (params, "final_mod_b"),
+                       (params, "final_w")):
+        tree[name] = (0.02 * torch.randn(tree[name].shape, generator=g,
+                                         device=cuda_device)).bfloat16()
+    x0 = torch.randn((2, 32, 32, 4), generator=g, device=cuda_device)
+    noise = td.draw_dit_noise(g, x0.shape, cuda_device)
+    labels = torch.arange(2, device=cuda_device)
+    kernels = (tatt.flash_attention, tatt.flash_attention_bwd_dq,
+               tatt.flash_attention_bwd_dkv)
+    out = {}
+    for attention in ("flash", "reference"):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  parameters(params)]
+        it = iter(leaves)
+
+        def rebuild(tree):
+            if isinstance(tree, dict):
+                return {k: rebuild(v) for k, v in tree.items()}
+            return next(it)
+
+        before = [fn.launches for fn in kernels]
+        loss = td.dit_loss(rebuild(params), noise, x0,
+                           dataclasses.replace(cfg, attention=attention),
+                           labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[attention] = (loss.item(), [t.grad for t in leaves],
+                          [fn.launches - n for fn, n in zip(kernels, before)])
+    assert out["flash"][2] == [2, 1, 1]
+    assert out["reference"][2] == [0, 0, 0]
+    assert abs(out["flash"][0] - out["reference"][0]) \
+        <= 1e-2 * abs(out["reference"][0])
+    for got, ref in zip(out["flash"][1], out["reference"][1]):
+        assert got is not None and torch.isfinite(got).all()
+        assert _rel_l2(got, ref).item() <= 1e-1
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_uninstantiated_head_dim_on_card(
+        cuda_device):
+    """A head_dim with no kernel instance (96) raises on the card,
+    forward and under autograd, naming the three it takes; the flash
+    path never falls back to the plain version. A DiT at that head_dim
     runs there only with attention="reference"."""
     from ray_tpu_torch.models import dit as td
-    q = torch.randn((2, 16, 4, 72), device=cuda_device).bfloat16()
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.randn((2, 16, 4, 96), device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="head_dim 64, 72 or 128, not 96"):
         tatt.flash_attention(q, q, q, False)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim 64, 72 or 128, not 96"):
         tatt.flash_attention(q.clone().requires_grad_(), q, q, False)
-    cfg = td.DiTConfig.xl_2(n_layers=1, input_size=8)
-    assert cfg.head_dim == 72 and cfg.attention == "flash"
+    cfg = td.DiTConfig.xl_2(n_layers=1, n_heads=12, input_size=8)
+    assert cfg.head_dim == 96 and cfg.attention == "flash"
     params = td.dit_init(0, cfg, device=cuda_device)
     x = torch.zeros((1, 8, 8, 4), device=cuda_device)
     t = torch.full((1,), 0.5, device=cuda_device)
+    before = tatt.flash_attention.launches
     with pytest.raises(ValueError, match="head_dim"):
         td.dit_forward(params, x, t, cfg)
+    assert tatt.flash_attention.launches == before
     out = td.dit_forward(params, x, t, dataclasses.replace(
         cfg, attention="reference"))
     assert out.shape == x.shape and torch.isfinite(out).all()

@@ -32,6 +32,19 @@ from ray_tpu_torch.rl.sample_batch import (
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread, as the other RL files take. These ops are
+    tiny: at the default (one thread per core) every op waits for a team
+    of threads, and beside busy processes (six xdist workers) the
+    12-iteration learning run slowed from about 3 s to past the 150 s
+    watchdog."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @jax.jit
 def _step_draws(key, gumbel_like):
     """One step of the reference's rollout key chain (env_runner.py:196,
