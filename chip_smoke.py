@@ -10,6 +10,13 @@ training paths' shapes, with its device time from a cold L2 (CUDA-graph
 replay over copies of the inputs that overflow the L2), the time of a
 call from Python, its plain version's time, the time of one PyTorch
 call for the same function where there is one, and its bound,
+(3b, ``seq_parallel``) sequence and pipeline parallelism at Llama-3-8B
+width: the ring's per-rank steps for 4 virtual ranks at B1 S8192 (K1-K3
+exactly 10 times causal and 16 full) against flash attention over the
+whole sequence and the plain f32 version, beside flash's own error and
+time; ring and Ulysses attention through a world-1 NCCL group, equal to
+flash; a 2-layer full-width Llama's loss and grads through them; and
+``pipeline`` over 4 microbatches of a 2-block stage with remat,
 (4) ``ContinuousBatchingEngine`` serving Llama-3-8B at full width and
 depth in bf16 from random seeded weights, (5) the same engine with int8
 FFN weights, then the engine's scheduling features on the same weights
@@ -34,8 +41,10 @@ the tokenize -> engine -> detokenize batch stages (``batch_stages``).
 Then (6) a 2-layer full-width prefill on the card against the plain f32
 version on the CPU, (7) training Llama-3-8B at full width and depth (loss,
 backward, fused AdamW; remat and chunked cross-entropy) for a warm-up
-and three timed steps on one fixed batch, (8) a 2-layer full-width loss
-and its grads on the card against the plain f32 version on the CPU,
+and three timed steps on one fixed batch, then three more on the
+same state with ring attention through a world-1 NCCL group, (8) a
+2-layer full-width loss and its grads on the card against the plain
+f32 version on the CPU,
 then (``train_checkpoint``) a 2-layer full-width training run that
 streams its batches through ``iter_device_batches``, traces steps 1-2
 with ``StepProfiler``, saves its whole state with ``save_pytree`` and a
@@ -76,7 +85,7 @@ holds K1 at their attention shapes (head_dim 64, H = KVH, S 197, 256
 and 77) and K2/K3 at the non-causal ones, and K1-K3 at head_dim 72
 (DIT_XL_ATTENTION: DiT-XL/2 at 256^2 and 512^2, a ragged S full and
 causal, a GQA group), (11) the kernel list, with each kernel's
-launches summed over phases 4-10. The
+launches summed over phases 3b-10. The
 backward is also timed whole, as the model calls it (delta, K2, K3 and
 K3's group sum), against SDPA's backward. Every kernel's launch count
 is zeroed just before each engine phase, each feature phase, each
@@ -95,6 +104,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1585,6 +1595,305 @@ def end_to_end_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: sequence and pipeline parallelism at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+# Llama-3-8B's attention (H 32, KVH 8, D 128) at B1 S8192: 4 virtual ranks
+# of 2048 positions each
+SEQ_SHAPE = (1, 8192, 32, 8, 128)
+SEQ_RANKS = 4
+SEQ_LLAMA_TOKENS = 2048
+PIPE_MICRO, PIPE_SEQ = 4, 1024
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv")
+
+
+@contextlib.contextmanager
+def nccl_world1(dev):
+    """A world-1 NCCL default group (a HashStore: no port is bound); the
+    sequence-parallel entry points take it as their group."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def attention_counts(n_each: int):
+    return {k: (n_each if k in ATTENTION_KERNELS else 0)
+            for k in _counted()}
+
+
+def seq_inputs(dev, gen):
+    """q, k, v, dO at SEQ_SHAPE, bf16."""
+    import torch
+    b, s, h, kvh, d = SEQ_SHAPE
+    return [torch.randn((b, s, heads, d), generator=gen, device=dev)
+            .bfloat16() for heads in (h, kvh, kvh, h)]
+
+
+def reference_f32(q, k, v, do, causal):
+    """The plain f32 attention and its grads, one KV head's group of
+    query heads at a time (a [B, H / KVH, S, S] f32 score block each)."""
+    import torch
+    from ray_tpu_torch.parallel.ring_attention import reference_attention
+    g = q.shape[2] // k.shape[2]
+    parts = []
+    for j in range(k.shape[2]):
+        qs = q[:, :, j * g:(j + 1) * g].float().requires_grad_()
+        ks = k[:, :, j:j + 1].float().requires_grad_()
+        vs = v[:, :, j:j + 1].float().requires_grad_()
+        o = reference_attention(qs, ks, vs, causal=causal)
+        o.backward(do[:, :, j * g:(j + 1) * g].float())
+        parts.append((o.detach(), qs.grad, ks.grad, vs.grad))
+        del o
+    return [torch.cat(ts, dim=2) for ts in zip(*parts)]
+
+
+def attention_errors(got, ref):
+    """Errors of (out, dq, dk, dv) against ``ref``: the output's max abs
+    and worst query row's relative L2, each grad's relative L2 and worst
+    row's (phase 3's measures)."""
+    import torch
+    errs = {}
+    for name, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        diff = g.float() - r.float()
+        errs[name] = dict(max_abs_err=diff.abs().max().item(),
+                          rel_l2_err=rel_l2(diff, r).item(),
+                          worst_row_rel_l2_err=rel_l2(
+                              diff, r, dim=(2, 3)).max().item())
+        check(bool(torch.isfinite(g).all()), f"{name} non-finite")
+    return errs
+
+
+def ring_virtual(dev, gen, causal):
+    """The ring's per-rank steps for SEQ_RANKS virtual ranks on the card
+    (``ring_attention_lockstep``: each block handed on where the ring
+    sends it): output and grads against ``flash_attention`` over the
+    whole sequence and against the plain f32 version, beside flash's own
+    error; K1-K3 launch n(n + 1) / 2 times causal, n^2 full; the ring's
+    time beside flash's."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.parallel.ring_attention import (
+        ring_attention_lockstep)
+    n = SEQ_RANKS
+    q, k, v, do = seq_inputs(dev, gen)
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(n, dim=1)]
+                       for t in (q, k, v, do))
+    reset_counts()
+    parts = ring_attention_lockstep(qs, ks, vs, causal, dos)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = attention_counts(n * (n + 1) // 2 if causal else n * n)
+    what = f"ring over {n} virtual ranks, causal={causal}"
+    check(counts == want, f"{what}: launches {counts} != {want}")
+    ring = [torch.cat(ts, dim=1) for ts in parts]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = att.flash_attention(*leaves, causal)
+    o.backward(do)
+    flash = [o.detach()] + [t.grad for t in leaves]
+    del o, leaves
+    ref = reference_f32(q, k, v, do, causal)
+    errs = {"ring_vs_f32": attention_errors(ring, ref),
+            "flash_vs_f32": attention_errors(flash, ref),
+            "ring_vs_flash": attention_errors(ring, flash)}
+    # phase 3's gates for K1 (the output) and K2/K3 (the grads)
+    for against in ("ring_vs_f32", "ring_vs_flash"):
+        out = errs[against]["out"]
+        check(out["max_abs_err"] <= 2e-2
+              and out["worst_row_rel_l2_err"] <= 1e-2,
+              f"{what}: output {against} {out}")
+        for name in ("dq", "dk", "dv"):
+            e = errs[against][name]
+            check(e["rel_l2_err"] <= 2e-2
+                  and e["worst_row_rel_l2_err"] <= 5e-2,
+                  f"{what}: {name} {against} {e}")
+    del ref, flash, ring, parts
+    free()
+    timing = dict(
+        ring_fwd_ms=call_ms(lambda: ring_attention_lockstep(
+            qs, ks, vs, causal), iters=20),
+        flash_fwd_ms=call_ms(lambda: att.flash_attention_fwd(
+            q, k, v, causal), iters=20),
+        ring_fwd_bwd_ms=call_ms(lambda: ring_attention_lockstep(
+            qs, ks, vs, causal, dos), iters=10),
+        flash_fwd_bwd_ms=call_ms(lambda: att._flash_backward(
+            q, k, v, *att.flash_attention_fwd(q, k, v, causal), do, causal),
+            iters=10))
+    return dict(shape=list(SEQ_SHAPE), ranks=n, causal=causal,
+                launches=counts, errors=errs, **timing), counts
+
+
+def ring_world1(dev, gen):
+    """``ring_attention`` and ``ulysses_attention`` through a world-1
+    NCCL group at SEQ_SHAPE, causal: output and grads bit-equal to
+    ``flash_attention``'s; K1-K3 once each."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.parallel.ring_attention import (
+        ring_attention, ulysses_attention)
+    q, k, v, do = seq_inputs(dev, gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = att.flash_attention(*leaves, True)
+    o.backward(do)
+    flash = [o.detach()] + [t.grad for t in leaves]
+    fields, counts = {}, None
+    with nccl_world1(dev):
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            reset_counts()
+            o = fn(*leaves)
+            o.backward(do)
+            torch.cuda.synchronize()
+            c = read_counts()
+            check(c == attention_counts(1), f"{name} at world 1: {c}")
+            got = [o.detach()] + [t.grad for t in leaves]
+            equal = [torch.equal(a, b) for a, b in zip(got, flash)]
+            check(all(equal), f"{name} at world 1 differs from flash: "
+                  f"{equal} (out, dq, dk, dv)")
+            fields[name] = dict(bit_equal_to_flash=True, launches=c)
+            counts = add_counts(counts, c)
+    return fields, counts
+
+
+def llama_seq_parallel(dev):
+    """A 2-layer full-width Llama-3-8B (bf16, remat, CE chunk 1024) at 1 x
+    SEQ_LLAMA_TOKENS: loss and grads with ring and Ulysses attention
+    through a world-1 NCCL group against flash's; each launches K1 2L,
+    K2 L, K3 L, K4 4L + 1. Then ``pipeline`` at world 1: its two blocks
+    as one stage over PIPE_MICRO microbatches with remat, output and
+    grads against the microbatches run one after another."""
+    import torch
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel.pipeline import pipeline
+    from ray_tpu_torch.scripts import bench_train as bt
+    cfg = dataclasses.replace(full_config(), n_layers=2,
+                              ce_chunk_tokens=bt.CE_CHUNK)
+    params = tl.unstack_layers(tl.llama_init(SEED, cfg, dev))
+    leaves = bt.parameters(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tokens, targets = (torch.randint(0, cfg.vocab_size,
+                                     (1, SEQ_LLAMA_TOKENS), generator=gen,
+                                     device=dev) for _ in range(2))
+    fields, counts, results = {}, None, {}
+    want = expected_train_counts(cfg.n_layers)
+    with nccl_world1(dev):
+        for attention in ("flash", "ring", "ulysses"):
+            c = dataclasses.replace(cfg, attention=attention)
+            reset_counts()
+            loss = tl.llama_loss(params, tokens, targets, c)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            step_counts = read_counts()
+            check(step_counts == want,
+                  f"llama {attention}: launches {step_counts} != {want}")
+            results[attention] = (loss.item(), grads)
+            if attention != "flash":
+                counts = add_counts(counts, step_counts)
+        loss_f, grads_f = results["flash"]
+        for attention in ("ring", "ulysses"):
+            loss_a, grads_a = results[attention]
+            rel_loss = abs(loss_a - loss_f) / abs(loss_f)
+            rel_grads = max(
+                (torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float())).item()
+                for a, b in zip(grads_a, grads_f))
+            check(math.isfinite(loss_a) and rel_loss <= 1e-5
+                  and rel_grads <= 1e-3,
+                  f"llama {attention} vs flash: loss {loss_a} vs {loss_f}, "
+                  f"grads relative L2 {rel_grads}")
+            fields[f"llama_{attention}"] = dict(
+                loss=loss_a, flash_loss=loss_f, rel_loss=rel_loss,
+                max_rel_l2_grads=rel_grads, bit_equal_to_flash=(
+                    loss_a == loss_f and all(
+                        torch.equal(a, b)
+                        for a, b in zip(grads_a, grads_f))),
+                launches=want)
+        del results, grads_f, grads_a
+        free()
+
+        cos, sin = tl.rope_frequencies(cfg.head_dim, PIPE_SEQ,
+                                       cfg.rope_theta, device=dev)
+        layers = params["layers"]
+
+        def stage(p, x):
+            for lp in p:
+                x = tl._block(lp, x, cos, sin, cfg)[0]
+            return x
+
+        x = torch.randn((PIPE_MICRO, PIPE_SEQ, cfg.dim), generator=gen,
+                        device=dev).to(cfg.dtype)
+        layer_leaves = bt.parameters(layers)
+        xp = x.clone().requires_grad_()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pipeline(stage, layers, xp, num_microbatches=PIPE_MICRO,
+                       remat=True)
+        (out.float().square().sum() / out.numel()).backward()
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        pipe_counts = read_counts()
+        per_micro = dict(expected_train_counts(cfg.n_layers),
+                         rms_norm=4 * cfg.n_layers)  # no final norm
+        want_pipe = {k: PIPE_MICRO * n for k, n in per_micro.items()}
+        check(pipe_counts == want_pipe,
+              f"pipeline launches {pipe_counts} != {want_pipe}")
+        counts = add_counts(counts, pipe_counts)
+        g_pipe = [t.grad.clone() for t in layer_leaves] + [xp.grad]
+        for t in layer_leaves:
+            t.grad = None
+        xs = x.clone().requires_grad_()
+        t0 = time.perf_counter()
+        seq_out = []
+        for i in range(PIPE_MICRO):
+            y = stage(layers, xs[i:i + 1])
+            (y.float().square().sum() / out.numel()).backward()
+            seq_out.append(y.detach())
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        g_seq = [t.grad for t in layer_leaves] + [xs.grad]
+        out_equal = torch.equal(out.detach(), torch.cat(seq_out))
+        rel = max((torch.linalg.vector_norm(a.float() - b.float())
+                   / torch.linalg.vector_norm(b.float())).item()
+                  for a, b in zip(g_pipe, g_seq))
+        check(out_equal, "pipeline output differs from the sequential run")
+        check(rel <= 1e-2, f"pipeline grads relative L2 {rel} > 1e-2")
+        fields["pipeline"] = dict(
+            microbatches=PIPE_MICRO, seq=PIPE_SEQ, stage_layers=2,
+            remat=True, output_bit_equal=out_equal, max_rel_l2_grads=rel,
+            seconds=pipe_s, sequential_seconds=seq_s, launches=pipe_counts)
+    del params, leaves
+    free()
+    return fields, counts
+
+
+def seq_parallel(dev, gen):
+    """Phase 3b: ring attention over virtual ranks, ring and Ulysses
+    through a world-1 group, a 2-layer Llama through them, the pipeline
+    -> (fields, the launches of the main-path runs; comparison runs are
+    not counted)."""
+    fields, counts = {}, None
+    for causal in (True, False):
+        row, c = ring_virtual(dev, gen, causal)
+        fields["ring_virtual_" + ("causal" if causal else "full")] = row
+        counts = add_counts(counts, c)
+    row, c = ring_world1(dev, gen)
+    fields["world1_group"] = row
+    counts = add_counts(counts, c)
+    row, c = llama_seq_parallel(dev)
+    fields.update(row)
+    counts = add_counts(counts, c)
+    return fields, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training Llama-3-8B at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -1641,12 +1950,55 @@ def run_train(dev):
         timed_step_ms=timed_ms, tokens_per_s=tokens_per_s,
         mfu=tokens_per_s * cfg.flops_per_token() / bt.H100_BF16_DENSE_FLOPS,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-        launches_per_step=want, launches=counts)
+        launches_per_step=want)
+    fields["ring_steps"], ring_counts = ring_train_steps(
+        dev, cfg, params, step, tokens, targets)
+    fields["launches"] = counts = add_counts(counts, ring_counts)
     del step, params, leaves
     gc.collect()
     torch.cuda.empty_cache()
     fields["seconds"] = time.perf_counter() - t_phase
     return fields, counts
+
+
+RING_STEPS = 3
+
+
+def ring_train_steps(dev, cfg, params, step, tokens, targets):
+    """Phase 3b's training part, on phase 7's parameters, AdamW and batch
+    after its timed steps: RING_STEPS steps with ring attention through a
+    world-1 NCCL group, each launching what a phase 7 step launches; the
+    first ring loss within 1e-3 relative of a flash loss from the same
+    parameters -> (fields, launches summed over the ring steps)."""
+    import torch
+    from ray_tpu_torch.models.llama import llama_loss
+    from ray_tpu_torch.scripts import bench_train as bt
+    with torch.no_grad():
+        flash_loss = llama_loss(params, tokens, targets, cfg).item()
+    ring_cfg = dataclasses.replace(cfg, attention="ring")
+    want = expected_train_counts(cfg.n_layers)
+    losses, step_ms, counts = [], [], None
+    with nccl_world1(dev):
+        ring_step = bt.make_train_step(ring_cfg, params,
+                                       optimizer=step.optimizer)
+        for i in range(RING_STEPS):
+            reset_counts()
+            t0 = time.perf_counter()
+            losses.append(ring_step(tokens, targets).item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_counts = read_counts()
+            check(step_counts == want,
+                  f"ring train step {i} launches {step_counts} != {want}")
+            counts = add_counts(counts, step_counts)
+    rel = abs(losses[0] - flash_loss) / abs(flash_loss)
+    check(all(math.isfinite(x) for x in losses) and rel <= 1e-3,
+          f"ring loss {losses[0]} vs flash loss {flash_loss} from the same "
+          "parameters")
+    check(losses[-1] < losses[0], f"ring loss did not fall: {losses}")
+    return dict(steps=RING_STEPS, flash_loss=flash_loss, losses=losses,
+                rel_loss_first=rel, step_ms=step_ms,
+                mean_step_ms=sum(step_ms) / RING_STEPS,
+                launches_per_step=want), counts
 
 
 # ---------------------------------------------------------------------------
@@ -3107,6 +3459,11 @@ def main() -> int:
               "int8_matmul": check_int8_matmul(dev, gen)}
     vision_checks = check_vision_attention(dev, gen)
     dit_xl_checks = check_dit_xl_attention(dev, gen)
+    t0 = time.perf_counter()
+    seq_fields, counts_seq = seq_parallel(dev, gen)
+    emit("seq_parallel", seconds=time.perf_counter() - t0,
+         launches=counts_seq, **seq_fields)
+    free()
 
     rng = __import__("numpy").random.default_rng(SEED)
     prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
@@ -3170,7 +3527,8 @@ def main() -> int:
                       + counts_features[kname] + counts_train[kname]
                       + prefill_vs_cpu["launches"][kname]
                       + grads_vs_cpu["launches"][kname]
-                      + counts_ckpt[kname] + counts_models[kname]),
+                      + counts_ckpt[kname] + counts_models[kname]
+                      + counts_seq[kname]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -21,6 +21,16 @@ verify step) and the LoRA deltas are plain PyTorch, as in the
 reference. With ``moe_experts`` set, every FFN (training, prefill,
 decode and verify alike) is the mixture-of-experts layer of
 parallel/moe.py, whose einsums are ``torch.einsum``.
+
+Sequence parallelism: with ``attention="ring"`` or ``"ulysses"``,
+:func:`llama_forward` and :func:`llama_loss` take a ``torch.distributed``
+group where the reference takes its mesh, and ``tokens`` / ``targets``
+are this rank's contiguous shard of the sequence. RoPE rotates the
+shard at its global positions, attention runs through
+parallel/ring_attention.py (K1-K3 on every block), and the loss divides
+by the group's token count, so every rank returns the global loss; its
+grads are this rank's share, which the training step sums over the
+group.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -38,7 +49,10 @@ from ray_tpu_torch.ops.attention import _attention_reference, flash_attention
 from ray_tpu_torch.ops.quant_matmul import int8_matmul, quantize_int8
 from ray_tpu_torch.ops.rmsnorm import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel import _group
 from ray_tpu_torch.parallel.moe import moe_ffn
+from ray_tpu_torch.parallel.ring_attention import (
+    ring_attention, ulysses_attention)
 
 Params = Dict[str, Any]
 
@@ -55,7 +69,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attention: str = "flash"  # flash | reference (ring/ulysses: later)
+    attention: str = "flash"  # flash | reference | ring | ulysses
     # Recompute each block in the backward (the reference's
     # jax.checkpoint): only block inputs stay alive between the passes.
     remat: bool = True
@@ -238,16 +252,22 @@ def stack_layers(params: Params) -> Params:
     return {**params, "layers": stacked}
 
 
-def _attention(q, k, v, config: LlamaConfig):
+SEQ_PARALLEL = ("ring", "ulysses")
+
+
+def _attention(q, k, v, config: LlamaConfig, group=None):
     """Dispatch to the configured attention implementation. K/V keep
-    their KV heads: both paths group the query heads over them."""
+    their KV heads: every path groups the query heads over them (Ulysses
+    repeats them when the group does not divide them)."""
     if config.attention == "flash":
         return flash_attention(q, k, v, True)
+    if config.attention == "ring":
+        return ring_attention(q, k, v, group, causal=True)
+    if config.attention == "ulysses":
+        return ulysses_attention(q, k, v, group, causal=True)
     if config.attention == "reference":
         return _attention_reference(q, k, v, True)
-    raise NotImplementedError(
-        f"attention={config.attention!r} (sequence parallelism) is not "
-        "ported yet")
+    raise ValueError(f"unknown attention {config.attention!r}")
 
 
 def _int8_mm(x2d, w8, scale):
@@ -312,11 +332,11 @@ def quantize_llama_ffn(params: Params, config: LlamaConfig) -> Params:
 
 
 def _block(layer_params: Params, x, cos, sin, config: LlamaConfig,
-           lora=None):
+           lora=None, group=None):
     """One transformer block. Returns (x, (k, v), aux); K/V are
     post-rope, the layout the KV cache stores. ``lora``: optional
     (A_q, B_q, A_v, B_v, scale) low-rank deltas on the q and v
-    projections."""
+    projections; ``group``: the sequence-parallel group."""
     c = config
     b, s, _ = x.shape
     hd = c.head_dim
@@ -333,7 +353,7 @@ def _block(layer_params: Params, x, cos, sin, config: LlamaConfig,
     v = v.reshape(b, s, c.n_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = _attention(q, k, v, c)
+    attn = _attention(q, k, v, c, group)
     x = x + attn.reshape(b, s, c.n_heads * hd) @ layer_params["wo"]
     h = rms_norm(x, layer_params["mlp_norm"], c.norm_eps)
     y, aux = _ffn(layer_params, h, c)
@@ -344,7 +364,24 @@ def _embed(params: Params, tokens, config: LlamaConfig):
     return params["embedding"][tokens].to(config.dtype)
 
 
-def llama_forward(params: Params, tokens, config: LlamaConfig,
+def _seq_group(config: LlamaConfig, group, device):
+    """(group, rank, size) of the sequence-parallel group; world 1 for
+    the single-device attentions, which take no group."""
+    if config.attention not in SEQ_PARALLEL:
+        if group is not None:
+            raise ValueError(f"attention={config.attention!r} takes no "
+                             f"group; sequence parallelism is "
+                             f"{SEQ_PARALLEL}")
+        return None, 0, 1
+    if config.moe_experts:
+        raise NotImplementedError(
+            f"attention={config.attention!r} with moe_experts: the "
+            "reference routes the global token set; sharding the expert "
+            "axis is ROADMAP Queue 1 item 5.4")
+    return _group.resolve(group, device)
+
+
+def llama_forward(params: Params, tokens, config: LlamaConfig, group=None,
                   return_aux: bool = False, return_hidden: bool = False):
     """tokens: [B, S] int -> logits [B, S, vocab] (float32), differentiable.
     With return_aux, also returns the MoE load-balancing loss summed over
@@ -352,12 +389,17 @@ def llama_forward(params: Params, tokens, config: LlamaConfig,
     final-norm hidden states INSTEAD of logits (chunked_cross_entropy
     applies lm_head chunk by chunk). With ``config.remat`` and grad
     enabled, each block runs under ``torch.utils.checkpoint`` and is
-    recomputed in the backward."""
+    recomputed in the backward. With ring or Ulysses attention, tokens
+    are this rank's shard [B, S / n] of a sequence sharded over
+    ``group`` (see the module docstring)."""
     c = config
     x = _embed(params, tokens, c)
-    cos, sin = rope_frequencies(c.head_dim, tokens.shape[1], c.rope_theta,
+    group, rank, n = _seq_group(c, group, x.device)
+    s = tokens.shape[1]
+    cos, sin = rope_frequencies(c.head_dim, n * s, c.rope_theta,
                                 device=x.device)
-    block = remat_wrap(_block, c.remat)
+    cos, sin = cos[rank * s:(rank + 1) * s], sin[rank * s:(rank + 1) * s]
+    block = remat_wrap(functools.partial(_block, group=group), c.remat)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(c.n_layers):
         x, _kv, aux = block(_layer(params["layers"], i), x, cos, sin, c)
@@ -376,13 +418,29 @@ def _ce_chunk(h, lm_head, t, m):
     return ((lse - tgt) * m).sum()
 
 
+def _token_mean(total, count, group):
+    """``total`` / max(``count``, 1), or, when the tokens are a sequence
+    shard over ``group``, this rank's share of the global token mean
+    (``count`` summed over the group), its value raised to the global
+    mean itself: the other ranks' shares enter as a constant, so every
+    rank returns the global loss and backpropagates its own share."""
+    n = 1 if group is None else dist.get_world_size(group)
+    share = total / torch.clamp(_group.all_reduce_sum(count, group, n),
+                                min=1.0)
+    if n == 1:
+        return share
+    return share + (_group.all_reduce_sum(share, group, n) - share).detach()
+
+
 def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
-                          chunk_tokens: int):
+                          chunk_tokens: int, group=None):
     """Token-mean NLL without materializing [B, S, vocab] logits: the
     output projection and log-softmax run per chunk of tokens under
     ``torch.utils.checkpoint``, so the backward recomputes one chunk's
     logits at a time (the reference's rematerialized scan). The tail is
-    padded with weight 0; the sum is divided by max(sum(mask), 1)."""
+    padded with weight 0; the sum is divided by max(sum(mask), 1).
+    ``group``: the group the tokens are a sequence shard of (None: not
+    sharded), over which the mask is summed."""
     dim = hidden.shape[-1]
     flat_h = hidden.reshape(-1, dim)
     flat_t = targets.reshape(-1).long()
@@ -402,31 +460,37 @@ def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
                 flat_m[lo:lo + chunk])
         total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False)
                          if remat else _ce_chunk(*args))
-    return total / torch.clamp(flat_m.sum(), min=1.0)
+    return _token_mean(total, flat_m.sum(), group)
 
 
 def llama_loss(params: Params, tokens, targets, config: LlamaConfig,
-               mask=None):
+               group=None, mask=None):
     """Next-token cross-entropy, f32 scalar, plus ``moe_aux_weight`` x
     the mean per-layer load-balancing loss for an MoE config.
     ``config.ce_chunk_tokens`` switches to the chunked loss that never
     materializes the [B, S, vocab] logits; ``mask`` [B, S] weighs each
-    token."""
+    token. With ring or Ulysses attention, tokens, targets and mask are
+    this rank's sequence shard, and the mean runs over the group's
+    tokens."""
+    group = _seq_group(config, group, params["lm_head"].device)[0]
     if config.ce_chunk_tokens:
-        hidden, aux = llama_forward(params, tokens, config, return_aux=True,
-                                    return_hidden=True)
+        hidden, aux = llama_forward(params, tokens, config, group,
+                                    return_aux=True, return_hidden=True)
         loss = chunked_cross_entropy(hidden, params["lm_head"], targets,
                                      mask,
-                                     chunk_tokens=config.ce_chunk_tokens)
+                                     chunk_tokens=config.ce_chunk_tokens,
+                                     group=group)
     else:
-        logits, aux = llama_forward(params, tokens, config, return_aux=True)
+        logits, aux = llama_forward(params, tokens, config, group,
+                                    return_aux=True)
         logp = torch.log_softmax(logits, dim=-1)
         ll = logp.gather(-1, targets[..., None].long())[..., 0]
         if mask is None:
-            loss = -ll.mean()
+            loss = _token_mean(-ll.sum(), ll.new_full((), ll.numel()),
+                               group)
         else:
             mask = mask.float()
-            loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            loss = _token_mean(-(ll * mask).sum(), mask.sum(), group)
     if config.moe_experts:
         loss = loss + config.moe_aux_weight * aux / config.n_layers
     return loss

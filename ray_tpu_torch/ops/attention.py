@@ -341,6 +341,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool
     return dk, dv
 
 
+def flash_attention_fwd(q, k, v, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, Sq, H, D], lse [B, H, Sq] f32) from q [B, Sq, H, D] and k/v
+    [B, Sk, KVH, D]: the plain version on a CPU tensor, kernel K1 on a
+    CUDA tensor (bf16, strided)."""
+    if q.device.type == "cpu":
+        return _flash_forward_reference(q, k, v, causal)
+    return _flash_forward(q, k, v, causal)
+
+
 def _flash_backward(q, k, v, o, lse, do, causal: bool):
     """(dq, dk, dv) of attention from the forward's o and lse: delta,
     then K2, then K3 and its group sum (their plain versions on a CPU
@@ -357,10 +367,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
-            o, lse = _flash_forward_reference(q, k, v, causal)
-        else:
-            o, lse = _flash_forward(q, k, v, causal)
+        o, lse = flash_attention_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o

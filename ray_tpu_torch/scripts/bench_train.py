@@ -20,13 +20,16 @@ import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.dit import (
     DiTConfig, dit_init, dit_loss, draw_dit_noise)
 from ray_tpu_torch.models.llama import (
-    LlamaConfig, Params, llama_init, llama_loss, unstack_layers)
+    SEQ_PARALLEL, LlamaConfig, Params, llama_init, llama_loss,
+    unstack_layers)
 from ray_tpu_torch.models.vit import ViTConfig, vit_init, vit_loss
+from ray_tpu_torch.parallel import _group
 
 H100_BF16_DENSE_FLOPS = 989e12
 BATCH, SEQ, STEPS, CE_CHUNK = 1, 2048, 3, 1024
@@ -52,22 +55,39 @@ def make_adamw(leaves, lr: float = 3e-4, weight_decay: float = 0.01):
                              fused=True if on_card else None)
 
 
+def all_reduce_grads(leaves, group) -> None:
+    """Sum each leaf's grad over ``group`` in place: with the sequence
+    sharded over the group, each rank's backward holds its shard's share
+    of the gradient (the reference gets the sum from GSPMD)."""
+    group, _rank, n = _group.resolve(group, leaves[0].device)
+    if n == 1:
+        return
+    for t in leaves:
+        if t.grad is not None:
+            dist.all_reduce(t.grad, op=dist.ReduceOp.SUM, group=group)
+
+
 def make_step(params: Params, loss_fn, lr: float = 3e-4,
-              weight_decay: float = 0.01):
+              weight_decay: float = 0.01, group=None, optimizer=None):
     """``step(*args) -> loss`` that updates ``params`` in place:
-    ``loss_fn(*args)``, its backward, then :func:`make_adamw`'s update
-    over ``parameters(params)``. Keep the layers unstacked
-    (``unstack_layers``). ``step.optimizer`` is that AdamW, so that a
-    checkpoint reaches its ``state_dict`` and ``load_state_dict``."""
+    ``loss_fn(*args)``, its backward, the grads summed over ``group``
+    when one is given (:func:`all_reduce_grads`), then the AdamW update
+    over ``parameters(params)``: ``optimizer``, or a new
+    :func:`make_adamw`. Keep the layers unstacked (``unstack_layers``).
+    ``step.optimizer`` is that AdamW, so that a checkpoint reaches its
+    ``state_dict`` and ``load_state_dict``."""
     leaves = parameters(params)
     for t in leaves:
         t.requires_grad_(True)
-    opt = make_adamw(leaves, lr, weight_decay)
+    opt = (optimizer if optimizer is not None
+           else make_adamw(leaves, lr, weight_decay))
 
     def step(*args) -> torch.Tensor:
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(*args)
         loss.backward()
+        if group is not None:
+            all_reduce_grads(leaves, group)
         opt.step()
         return loss.detach()
 
@@ -76,12 +96,17 @@ def make_step(params: Params, loss_fn, lr: float = 3e-4,
 
 
 def make_train_step(cfg: LlamaConfig, params: Params, lr: float = 3e-4,
-                    weight_decay: float = 0.01):
+                    weight_decay: float = 0.01, group=None, optimizer=None):
     """``step(tokens, targets) -> loss``: :func:`make_step` over
-    ``llama_loss``."""
+    ``llama_loss``. With ring or Ulysses attention, tokens and targets
+    are this rank's sequence shard over ``group`` (None: the default
+    group, or world 1), and the grads are summed over it."""
+    if cfg.attention in SEQ_PARALLEL:
+        group = _group.resolve(group, params["lm_head"].device)[0]
     return make_step(
         params, lambda tokens, targets: llama_loss(params, tokens, targets,
-                                                   cfg), lr, weight_decay)
+                                                   cfg, group),
+        lr, weight_decay, group, optimizer)
 
 
 def setup(cfg: LlamaConfig, batch: int, seq: int, device: DeviceLike = None):

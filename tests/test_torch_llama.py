@@ -163,16 +163,20 @@ def test_config_presets_match_jax():
 
 
 def test_moe_and_sequence_parallel_are_not_ported():
-    """Sequence parallelism (ring, ulysses) is still to port and
-    raises. The MoE branch is ported since (tests/test_torch_moe.py):
-    its init builds the reference's router and expert stacks."""
+    """Both are ported now; the name is kept from when they were not.
+    The MoE branch (tests/test_torch_moe.py): its init builds the
+    reference's router and expert stacks. Sequence parallelism
+    (tests/test_torch_llama_seq_parallel.py): a ring forward at world 1
+    (no process group) equals flash's."""
     moe = tl.llama_init(0, tl.LlamaConfig.tiny_moe(), device="cpu")
     assert tuple(moe["layers"]["router"].shape) == (2, 64, 4)
     assert tuple(moe["layers"]["w2"].shape) == (2, 4, 128, 64)
-    cfg = tl.LlamaConfig.tiny(attention="ring")
     p = tl.llama_init(0, tl.LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        tl.llama_forward(p, torch.zeros((1, 4), dtype=torch.long), cfg)
+    toks = torch.from_numpy(_tokens(n=16, batch=2)).long()
+    flash = tl.llama_forward(p, toks, tl.LlamaConfig.tiny(attention="flash"))
+    ring = tl.llama_forward(p, toks, tl.LlamaConfig.tiny(attention="ring"))
+    np.testing.assert_allclose(ring.numpy(), flash.numpy(), atol=1e-6,
+                               rtol=1e-6)
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
