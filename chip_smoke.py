@@ -17,6 +17,12 @@ whole sequence and the plain f32 version, beside flash's own error and
 time; ring and Ulysses attention through a world-1 NCCL group, equal to
 flash; a 2-layer full-width Llama's loss and grads through them; and
 ``pipeline`` over 4 microbatches of a 2-block stage with remat,
+(3c, ``sharded``) sharded parameters through a world-1 mesh with all
+six axes: a 2-layer Llama-3-8B-width model cut by ``shard_pytree`` under
+ddp, fsdp, tp and fsdp_tp, and a 2-layer Mixtral-8x7B-width one under
+ep with flash and with ring attention, each loss and grad bit-equal to
+the unsharded run and each run launching K1-K4 exactly as a training
+step does,
 (4) ``ContinuousBatchingEngine`` serving Llama-3-8B at full width and
 depth in bf16 from random seeded weights, (5) the same engine with int8
 FFN weights, then the engine's scheduling features on the same weights
@@ -42,7 +48,9 @@ Then (6) a 2-layer full-width prefill on the card against the plain f32
 version on the CPU, (7) training Llama-3-8B at full width and depth (loss,
 backward, fused AdamW; remat and chunked cross-entropy) for a warm-up
 and three timed steps on one fixed batch, then three more on the
-same state with ring attention through a world-1 NCCL group, (8) a
+same state with ring attention through a world-1 NCCL group, then three
+through the fsdp_tp mesh path in turns with three more of its own, timed
+by the host clock and CUDA events, (8) a
 2-layer full-width loss and its grads on the card against the plain
 f32 version on the CPU,
 then (``train_checkpoint``) a 2-layer full-width training run that
@@ -1894,6 +1902,111 @@ def seq_parallel(dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: sharded parameters and expert parallelism through a world-1 mesh
+# ---------------------------------------------------------------------------
+
+SHARD_MODES = ("ddp", "fsdp", "tp", "fsdp_tp")
+# (sharding mode, attention) of the Mixtral-width runs
+MOE_SHARD_RUNS = (("ep", "flash"), ("ep", "ring"))
+SHARD_TOKENS = 2048
+
+
+def world1_mesh(dev):
+    """A world-1 mesh with all six axes, over the current default group."""
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER, MeshSpec, make_mesh
+    mesh = make_mesh(MeshSpec(), dev)
+    check(tuple(mesh.mesh_dim_names) == AXIS_ORDER
+          and tuple(mesh.shape) == (1,) * 6,
+          f"world-1 mesh {mesh.mesh_dim_names} {mesh.shape}")
+    return mesh
+
+
+def loss_and_grads(params, tokens, targets, cfg, **kw):
+    """-> (loss, the grads of every leaf, the launches of the run)."""
+    import torch
+    from ray_tpu_torch.models.llama import llama_loss
+    from ray_tpu_torch.scripts import bench_train as bt
+    reset_counts()
+    loss = llama_loss(params, tokens, targets, cfg, **kw)
+    grads = torch.autograd.grad(loss, bt.parameters(params))
+    torch.cuda.synchronize()
+    return loss, grads, read_counts()
+
+
+def sharded_runs(dev, mesh, cfg, runs):
+    """A 2-layer model of ``cfg``'s width at 1 x SHARD_TOKENS, bf16, remat,
+    CE chunk 1024: the unsharded flash loss and grads (a comparison run,
+    not counted), then each (mode, attention) of ``runs`` on the shards
+    ``shard_pytree`` cuts under the mode's rules through ``mesh``: the
+    loss and every grad bit-equal to the unsharded run's, each run
+    launching exactly K1 2L, K2 L, K3 L, K4 4L + 1 -> (fields, the
+    launches of the sharded runs)."""
+    import torch
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel.sharding import shard_pytree
+    from ray_tpu_torch.scripts import bench_train as bt
+    cfg = dataclasses.replace(cfg, n_layers=2, ce_chunk_tokens=bt.CE_CHUNK)
+    params = tl.llama_init(SEED, cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tokens, targets = (torch.randint(0, cfg.vocab_size, (1, SHARD_TOKENS),
+                                     generator=gen, device=dev)
+                       for _ in range(2))
+    ref = tl.unstack_layers(params)
+    for t in bt.parameters(ref):
+        t.requires_grad_(True)
+    want_loss, want_grads, _ = loss_and_grads(ref, tokens, targets, cfg)
+    del ref
+    want = expected_train_counts(cfg.n_layers)
+    fields, counts = {}, None
+    for mode, attention in runs:
+        rules = tl.llama_sharding_rules(mode)
+        local = tl.unstack_layers(shard_pytree(params, mesh, rules))
+        for t in bt.parameters(local):
+            t.requires_grad_(True)
+        c = dataclasses.replace(cfg, attention=attention)
+        t0 = time.perf_counter()
+        loss, grads, run_counts = loss_and_grads(local, tokens, targets, c,
+                                                 mesh=mesh, rules=rules)
+        seconds = time.perf_counter() - t0
+        what = f"{mode} {attention} at world 1"
+        check(run_counts == want, f"{what}: launches {run_counts} != {want}")
+        check(bool(torch.isfinite(loss)), f"{what}: loss {loss.item()}")
+        equal = [torch.equal(g, w) for g, w in zip(grads, want_grads)]
+        check(torch.equal(loss, want_loss) and all(equal),
+              f"{what}: loss {loss.item()} vs {want_loss.item()}, "
+              f"{equal.count(False)} of {len(equal)} grads differ")
+        fields[f"{mode}_{attention}"] = dict(
+            loss=loss.item(), bit_equal_to_unsharded=True, leaves=len(grads),
+            seconds=seconds, launches=run_counts)
+        counts = add_counts(counts, run_counts)
+        del local, grads, loss
+    del params, want_grads
+    free()
+    return fields, counts
+
+
+def sharded(dev):
+    """Phase 3c: Llama-3-8B width under ddp, fsdp, tp and fsdp_tp, and
+    Mixtral-8x7B width (8 experts, 2.8 GB of expert stacks a layer) under
+    ep with flash and with ring attention, all through a world-1 mesh
+    over a world-1 NCCL group, where every collective is the identity:
+    any difference from the unsharded run is a bug."""
+    from ray_tpu_torch.models import LlamaConfig
+    fields, counts = {}, None
+    with nccl_world1(dev):
+        mesh = world1_mesh(dev)
+        for name, cfg, runs in (
+                ("llama3_8b", full_config(),
+                 [(mode, "flash") for mode in SHARD_MODES]),
+                ("mixtral_8x7b", LlamaConfig.mixtral_8x7b(),
+                 MOE_SHARD_RUNS)):
+            fields[name], c = sharded_runs(dev, mesh, cfg, runs)
+            counts = add_counts(counts, c)
+    return fields, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training Llama-3-8B at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -1953,7 +2066,10 @@ def run_train(dev):
         launches_per_step=want)
     fields["ring_steps"], ring_counts = ring_train_steps(
         dev, cfg, params, step, tokens, targets)
-    fields["launches"] = counts = add_counts(counts, ring_counts)
+    fields["mesh_steps"], mesh_counts = mesh_train_steps(
+        dev, cfg, params, step, tokens, targets)
+    counts = add_counts(add_counts(counts, ring_counts), mesh_counts)
+    fields["launches"] = counts
     del step, params, leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -1999,6 +2115,61 @@ def ring_train_steps(dev, cfg, params, step, tokens, targets):
                 rel_loss_first=rel, step_ms=step_ms,
                 mean_step_ms=sum(step_ms) / RING_STEPS,
                 launches_per_step=want), counts
+
+
+MESH_STEPS = 3
+
+
+def mesh_train_steps(dev, cfg, params, step, tokens, targets):
+    """After the ring steps, on the same parameters, AdamW and batch:
+    MESH_STEPS steps through the fsdp_tp mesh path (a world-1 mesh, whose
+    local shards are the whole tensors) in turns with MESH_STEPS more of
+    phase 7's steps, each launching what a phase 7 step launches; each
+    step's host ms (ended by ``loss.item()``) and CUDA-event ms, the
+    means and the mesh path's ratio to phase 7's -> (fields, launches
+    summed over the steps)."""
+    import torch
+    from ray_tpu_torch.models.llama import llama_sharding_rules
+    from ray_tpu_torch.scripts import bench_train as bt
+    want = expected_train_counts(cfg.n_layers)
+    rows = {"phase7": [], "mesh": []}
+    counts = None
+    with nccl_world1(dev):
+        mesh = world1_mesh(dev)
+        steps = {"phase7": step, "mesh": bt.make_train_step(
+            cfg, params, optimizer=step.optimizer, mesh=mesh,
+            rules=llama_sharding_rules("fsdp_tp"))}
+        for i in range(MESH_STEPS):
+            for name, fn in steps.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                reset_counts()
+                t0 = time.perf_counter()
+                start.record()
+                loss = fn(tokens, targets)
+                end.record()
+                loss = loss.item()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                step_counts = read_counts()
+                check(step_counts == want,
+                      f"{name} step {i} launches {step_counts} != {want}")
+                rows[name].append((loss, host_ms, start.elapsed_time(end)))
+                counts = add_counts(counts, step_counts)
+    losses = [r[0] for pair in zip(rows["phase7"], rows["mesh"])
+              for r in pair]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"losses in turns (phase 7, mesh, ...): {losses}")
+    fields = dict(steps=MESH_STEPS, mode="fsdp_tp", losses_in_turns=losses,
+                  launches_per_step=want)
+    for i, clock in ((1, "host"), (2, "event")):
+        means = {name: sum(r[i] for r in rs) / len(rs)
+                 for name, rs in rows.items()}
+        fields[f"{clock}_ms"] = {name: [r[i] for r in rs]
+                                 for name, rs in rows.items()}
+        fields[f"{clock}_mean_ms"] = means
+        fields[f"{clock}_ratio_mesh_to_phase7"] = means["mesh"] / means[
+            "phase7"]
+    return fields, counts
 
 
 # ---------------------------------------------------------------------------
@@ -3464,6 +3635,11 @@ def main() -> int:
     emit("seq_parallel", seconds=time.perf_counter() - t0,
          launches=counts_seq, **seq_fields)
     free()
+    t0 = time.perf_counter()
+    shard_fields, counts_sharded = sharded(dev)
+    emit("sharded", seconds=time.perf_counter() - t0,
+         launches=counts_sharded, **shard_fields)
+    free()
 
     rng = __import__("numpy").random.default_rng(SEED)
     prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
@@ -3528,7 +3704,7 @@ def main() -> int:
                       + prefill_vs_cpu["launches"][kname]
                       + grads_vs_cpu["launches"][kname]
                       + counts_ckpt[kname] + counts_models[kname]
-                      + counts_seq[kname]),
+                      + counts_seq[kname] + counts_sharded[kname]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -17,7 +17,8 @@ is K1 on the card (non-causal) and, under autograd, K2 and K3
 (ops/attention.py): DiT-B/2 at head_dim 64 (768 / 12), DiT-XL/2 at 72
 (1152 / 16). LayerNorm, the modulation, GELU and the timestep features
 are PyTorch ops (jnp in the reference), and the products
-``torch.matmul``.
+``torch.matmul``. ``dit_sharding_rules`` are the reference's rules for
+this tree; the forward runs on whole parameters.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import _layer, remat_wrap
 from ray_tpu_torch.models.vit import (
-    _attend, fan_in_init, gelu, layer_norm, n_layers_of)
+    _attend, _mode_specs, fan_in_init, gelu, layer_norm, n_layers_of)
+from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, Any]
 
@@ -298,3 +300,18 @@ def dit_sample(params: Params, noise: Dict[str, torch.Tensor],
         e = (x - a_now * x0) / torch.clamp(s_now, min=1e-6)
         x = a_next * x0 + s_next * e
     return x
+
+
+def dit_sharding_rules(mode: str = "fsdp") -> ShardingRules:
+    """ddp | fsdp | tp | fsdp_tp: the ViT/CLIP family's mode table
+    (leading axis = layers on the block weights)."""
+    if mode == "ddp":
+        return ShardingRules(rules=[(r".*", P())])
+    spec_in, spec_out, embed = _mode_specs(mode)
+    return ShardingRules(rules=[
+        (r"patch_embed", embed),
+        (r"layers/(wq|wk|wv|w1)", spec_in),
+        (r"layers/(wo|w2)", spec_out),
+        (r"layers/mod_w", spec_in),
+        (r".*", P()),
+    ])

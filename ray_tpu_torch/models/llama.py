@@ -30,17 +30,32 @@ shard at its global positions, attention runs through
 parallel/ring_attention.py (K1-K3 on every block), and the loss divides
 by the group's token count, so every rank returns the global loss; its
 grads are this rank's share, which the training step sums over the
-group.
+group. An MoE FFN routes the group's tokens as one set (parallel/moe.py).
+
+Sharded parameters: with ``mesh=`` (a ``DeviceMesh`` from
+``parallel.mesh.make_mesh``) and ``rules=`` (:func:`llama_sharding_rules`),
+``params`` is this rank's local shards (``parallel.sharding.shard_pytree``
+of the stacked tree, unstacked for training) and ``tokens`` / ``targets``
+this rank's shard of the batch: rows split over ``data`` and ``fsdp``
+(data major), positions over ``seq`` (ring or Ulysses attention),
+replicated over ``model`` and ``expert``. Each leaf is gathered where a
+layer uses it (parallel/_sharded.py), but for the Megatron pairs on
+``model``: wq / wk / wv and w1 / w3 are column-parallel (K1-K3 run on the
+rank's H / m query and KVH / m KV heads), wo and w2 row-parallel with an
+all-reduce after each; and for the expert stacks on ``expert``, which
+stay local (expert parallelism, parallel/moe.py). The loss is the global
+token mean on every rank, and after its backward each leaf's gradient is
+the same slice of the unsharded gradient: the sums over the token axes
+run inside the backward.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -50,9 +65,12 @@ from ray_tpu_torch.ops.quant_matmul import int8_matmul, quantize_int8
 from ray_tpu_torch.ops.rmsnorm import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from ray_tpu_torch.parallel import _group
+from ray_tpu_torch.parallel._sharded import (
+    Layout, all_reduce, copy_to, global_value, reduce_from, use)
 from ray_tpu_torch.parallel.moe import moe_ffn
 from ray_tpu_torch.parallel.ring_attention import (
     ring_attention, ulysses_attention)
+from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, Any]
 
@@ -77,7 +95,8 @@ class LlamaConfig:
     # [B, S, vocab] f32 logits never exist (chunked_cross_entropy).
     ce_chunk_tokens: int = 0
     # Mixture-of-Experts: >0 replaces the dense FFN with moe_experts
-    # expert FFNs routed top-k (parallel/moe.py), on one device.
+    # expert FFNs routed top-k (parallel/moe.py), expert-parallel over
+    # the "expert" mesh axis.
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -280,17 +299,19 @@ def _int8_mm(x2d, w8, scale):
     return int8_matmul(x2d.to(torch.bfloat16), w8, scale).to(x2d.dtype)
 
 
-def _ffn(layer_params: Params, h, config: LlamaConfig):
+def _ffn(layer_params: Params, h, config: LlamaConfig, plan=None):
     """FFN output (pre-residual): dense SwiGLU, its weight-only int8
     form through ``int8_matmul`` (kernel K5 on the card, its plain
     version on the CPU), or the MoE layer. Returns (y, aux); aux is the
-    MoE load-balancing loss, 0 for a dense FFN."""
+    MoE load-balancing loss, 0 for a dense FFN. ``plan``: the
+    :class:`_Plan` of a sharded or sequence-parallel forward."""
     c = config
     if c.moe_experts:
         return moe_ffn(h, layer_params["router"], layer_params["w1"],
                        layer_params["w3"], layer_params["w2"],
                        top_k=c.moe_top_k,
-                       capacity_factor=c.moe_capacity_factor)
+                       capacity_factor=c.moe_capacity_factor,
+                       **({} if plan is None else plan.moe_axes()))
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if "w1_q8" in layer_params:
         b_t = h.shape[:-1]
@@ -301,9 +322,11 @@ def _ffn(layer_params: Params, h, config: LlamaConfig):
         y = _int8_mm((gate * up).to(h.dtype), layer_params["w2_q8"],
                      layer_params["w2_s"])
         return y.reshape(*b_t, -1).to(h.dtype), zero
+    axis = None if plan is None else plan.ffn_model
+    h = copy_to(h, axis)  # column-parallel w1 / w3, row-parallel w2
     gate = F.silu(h @ layer_params["w1"])
     up = h @ layer_params["w3"]
-    return (gate * up) @ layer_params["w2"], zero
+    return reduce_from((gate * up) @ layer_params["w2"], axis), zero
 
 
 def quantize_llama_ffn(params: Params, config: LlamaConfig) -> Params:
@@ -332,31 +355,42 @@ def quantize_llama_ffn(params: Params, config: LlamaConfig) -> Params:
 
 
 def _block(layer_params: Params, x, cos, sin, config: LlamaConfig,
-           lora=None, group=None):
+           lora=None, group=None, plan=None):
     """One transformer block. Returns (x, (k, v), aux); K/V are
     post-rope, the layout the KV cache stores. ``lora``: optional
     (A_q, B_q, A_v, B_v, scale) low-rank deltas on the q and v
-    projections; ``group``: the sequence-parallel group."""
+    projections; ``group``: the sequence-parallel group; ``plan``: the
+    :class:`_Plan` of a sharded or sequence-parallel forward, which
+    gathers the layer's leaves and runs the Megatron pairs."""
     c = config
     b, s, _ = x.shape
     hd = c.head_dim
+    axis = None
+    if plan is not None:
+        if lora is not None:
+            raise ValueError("LoRA deltas on sharded parameters are not "
+                             "wired")
+        layer_params = plan.layer(layer_params)
+        axis = plan.attn_model
+    m = 1 if axis is None else axis.size
     h = rms_norm(x, layer_params["attn_norm"], c.norm_eps)
-    q = h @ layer_params["wq"]
-    k = h @ layer_params["wk"]
-    v = h @ layer_params["wv"]
+    hq = copy_to(h, axis)  # column-parallel wq / wk / wv
+    q = hq @ layer_params["wq"]
+    k = hq @ layer_params["wk"]
+    v = hq @ layer_params["wv"]
     if lora is not None:
         a_q, b_q, a_v, b_v, scale = lora
         q = q + scale * _lora_delta(h, a_q, b_q)
         v = v + scale * _lora_delta(h, a_v, b_v)
-    q = q.reshape(b, s, c.n_heads, hd)
-    k = k.reshape(b, s, c.n_kv_heads, hd)
-    v = v.reshape(b, s, c.n_kv_heads, hd)
+    q = q.reshape(b, s, c.n_heads // m, hd)
+    k = k.reshape(b, s, c.n_kv_heads // m, hd)
+    v = v.reshape(b, s, c.n_kv_heads // m, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = _attention(q, k, v, c, group)
-    x = x + attn.reshape(b, s, c.n_heads * hd) @ layer_params["wo"]
+    x = x + reduce_from(attn.reshape(b, s, -1) @ layer_params["wo"], axis)
     h = rms_norm(x, layer_params["mlp_norm"], c.norm_eps)
-    y, aux = _ffn(layer_params, h, c)
+    y, aux = _ffn(layer_params, h, c, plan)
     return x + y, (k, v), aux
 
 
@@ -373,16 +407,136 @@ def _seq_group(config: LlamaConfig, group, device):
                              f"group; sequence parallelism is "
                              f"{SEQ_PARALLEL}")
         return None, 0, 1
-    if config.moe_experts:
-        raise NotImplementedError(
-            f"attention={config.attention!r} with moe_experts: the "
-            "reference routes the global token set; sharding the expert "
-            "axis is ROADMAP Queue 1 item 5.4")
     return _group.resolve(group, device)
 
 
+# The layer leaves of Megatron's pairs on the model axis: column-parallel
+# (the output dimension split), then row-parallel (the input dimension)
+_ATTN_PAIR = (("wq", "wk", "wv"), ("wo",))
+_FFN_PAIR = (("w1", "w3"), ("w2",))
+
+
+class _Plan:
+    """How one forward runs: its sequence group (ring or Ulysses), and
+    with a mesh the layout, every leaf's spec and the axes the layers
+    use sharded. Without either, every leaf is used as it is."""
+
+    def __init__(self, config: LlamaConfig, seq, layout=None, specs=None):
+        self.seq_group, self.seq_rank, self.seq_n = seq
+        self.layout, self.specs = layout, specs
+        self.local: Dict[str, tuple] = {}
+        self.attn_model = self.ffn_model = self.expert = None
+        if specs is None:
+            return
+        model = layout.split("model")
+        if model is not None and self._pair_on(_ATTN_PAIR, "model"):
+            if config.n_heads % model.size or config.n_kv_heads % model.size:
+                raise ValueError(
+                    f"the model axis ({model.size}) must divide n_heads "
+                    f"({config.n_heads}) and n_kv_heads "
+                    f"({config.n_kv_heads})")
+            self.attn_model = model
+            self.local.update(dict.fromkeys(sum(_ATTN_PAIR, ()), ("model",)))
+        if (model is not None and not config.moe_experts
+                and self._pair_on(_FFN_PAIR, "model")):
+            self.ffn_model = model
+            self.local.update(dict.fromkeys(sum(_FFN_PAIR, ()), ("model",)))
+        expert = layout.split("expert")
+        if config.moe_experts and expert is not None and all(
+                self._on(n, 0, "expert") for n in ("w1", "w3", "w2")):
+            self.expert = expert
+            self.local.update(dict.fromkeys(("w1", "w3", "w2"),
+                                            ("expert",)))
+
+    def _on(self, name: str, dim: int, axis: str) -> bool:
+        spec = self.specs.get(name, P())
+        return len(spec) > dim and spec[dim] == axis
+
+    def _pair_on(self, pair, axis: str) -> bool:
+        column, row = pair
+        return (all(self._on(n, 1, axis) for n in column)
+                and all(self._on(n, 0, axis) for n in row))
+
+    def leaf(self, params: Params, name: str):
+        if self.specs is None:
+            return params[name]
+        return use(params[name], self.specs[name], self.layout)
+
+    def layer(self, layer_params: Params) -> Params:
+        if self.specs is None:
+            return layer_params
+        return {name: use(t, self.specs[name], self.layout,
+                          self.local.get(name, ()))
+                for name, t in layer_params.items()}
+
+    def token_axes(self) -> tuple:
+        return () if self.layout is None else self.layout.token_axes()
+
+    def moe_axes(self) -> Dict[str, Any]:
+        if self.layout is None:
+            return {}
+        return dict(batch_axes=self.layout.batch_axes(),
+                    seq_axis=self.layout.split("seq"),
+                    expert_axis=self.expert)
+
+
+def _leaf_specs(params: Params, rules: ShardingRules) -> Dict[str, P]:
+    """The spec of each top-level leaf and (without its layer axis) of
+    each layer leaf, by the paths of the stacked tree
+    (``layers/<name>``), which the rules are written for."""
+    specs = {name: rules.spec_for(name, params[name].ndim)
+             for name in ("embedding", "final_norm", "lm_head")}
+    for name, t in _layer(params["layers"], 0).items():
+        spec = rules.spec_for(f"layers/{name}", t.ndim + 1)
+        if spec and spec[0] is not None:
+            raise ValueError(f"layers/{name}: {spec} splits the layer axis")
+        specs[name] = P(*spec[1:])
+    return specs
+
+
+def _plan(config: LlamaConfig, group, mesh, rules, params: Params) -> _Plan:
+    device = params["lm_head"].device
+    if mesh is None:
+        seq = _seq_group(config, group, device)
+        layout = None if seq[0] is None else Layout.from_group(seq[0],
+                                                               device)
+        return _Plan(config, seq, layout)
+    if group is not None:
+        raise ValueError("pass a mesh or a sequence group, not both")
+    layout = Layout.from_mesh(mesh, device)
+    layout.check()
+    seq = layout.axes["seq"]
+    if config.attention not in SEQ_PARALLEL and seq.size > 1:
+        raise ValueError(f"a seq axis of {seq.size} needs ring or Ulysses "
+                         f"attention, not {config.attention!r}")
+    specs = _leaf_specs(params, rules or ShardingRules(rules=[(r".*", P())]))
+    return _Plan(config, (seq.group, seq.rank, seq.size), layout, specs)
+
+
+def _forward(params: Params, tokens, config: LlamaConfig, plan: _Plan,
+             return_hidden: bool):
+    c = config
+    x = plan.leaf(params, "embedding")[tokens].to(c.dtype)
+    s, rank, n = tokens.shape[1], plan.seq_rank, plan.seq_n
+    cos, sin = rope_frequencies(c.head_dim, n * s, c.rope_theta,
+                                device=x.device)
+    cos, sin = cos[rank * s:(rank + 1) * s], sin[rank * s:(rank + 1) * s]
+    block = remat_wrap(functools.partial(
+        _block, group=plan.seq_group,
+        plan=None if plan.layout is None else plan), c.remat)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(c.n_layers):
+        x, _kv, aux = block(_layer(params["layers"], i), x, cos, sin, c)
+        aux_sum = aux_sum + aux
+    x = rms_norm(x, plan.leaf(params, "final_norm"), c.norm_eps)
+    if return_hidden:
+        return x, aux_sum
+    return (x @ plan.leaf(params, "lm_head")).float(), aux_sum
+
+
 def llama_forward(params: Params, tokens, config: LlamaConfig, group=None,
-                  return_aux: bool = False, return_hidden: bool = False):
+                  return_aux: bool = False, return_hidden: bool = False, *,
+                  mesh=None, rules: Optional[ShardingRules] = None):
     """tokens: [B, S] int -> logits [B, S, vocab] (float32), differentiable.
     With return_aux, also returns the MoE load-balancing loss summed over
     the layers (0 for dense FFNs). With return_hidden, returns the
@@ -391,24 +545,12 @@ def llama_forward(params: Params, tokens, config: LlamaConfig, group=None,
     enabled, each block runs under ``torch.utils.checkpoint`` and is
     recomputed in the backward. With ring or Ulysses attention, tokens
     are this rank's shard [B, S / n] of a sequence sharded over
-    ``group`` (see the module docstring)."""
-    c = config
-    x = _embed(params, tokens, c)
-    group, rank, n = _seq_group(c, group, x.device)
-    s = tokens.shape[1]
-    cos, sin = rope_frequencies(c.head_dim, n * s, c.rope_theta,
-                                device=x.device)
-    cos, sin = cos[rank * s:(rank + 1) * s], sin[rank * s:(rank + 1) * s]
-    block = remat_wrap(functools.partial(_block, group=group), c.remat)
-    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(c.n_layers):
-        x, _kv, aux = block(_layer(params["layers"], i), x, cos, sin, c)
-        aux_sum = aux_sum + aux
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
-    if return_hidden:
-        return (x, aux_sum) if return_aux else x
-    logits = (x @ params["lm_head"]).float()
-    return (logits, aux_sum) if return_aux else logits
+    ``group``; with ``mesh`` and ``rules``, ``params`` and ``tokens`` are
+    this rank's shards (see the module docstring)."""
+    out, aux = _forward(params, tokens, config,
+                        _plan(config, group, mesh, rules, params),
+                        return_hidden)
+    return (out, aux) if return_aux else out
 
 
 def _ce_chunk(h, lm_head, t, m):
@@ -418,29 +560,18 @@ def _ce_chunk(h, lm_head, t, m):
     return ((lse - tgt) * m).sum()
 
 
-def _token_mean(total, count, group):
-    """``total`` / max(``count``, 1), or, when the tokens are a sequence
-    shard over ``group``, this rank's share of the global token mean
-    (``count`` summed over the group), its value raised to the global
+def _token_mean(total, count, axes=()):
+    """``total`` / max(``count``, 1), or, when the tokens are split over
+    ``axes`` (``_sharded.Axis``), this rank's share of the global token
+    mean (``count`` summed over the axes), its value raised to the global
     mean itself: the other ranks' shares enter as a constant, so every
     rank returns the global loss and backpropagates its own share."""
-    n = 1 if group is None else dist.get_world_size(group)
-    share = total / torch.clamp(_group.all_reduce_sum(count, group, n),
-                                min=1.0)
-    if n == 1:
-        return share
-    return share + (_group.all_reduce_sum(share, group, n) - share).detach()
+    count = all_reduce(count, axes) if axes else count.detach()
+    return global_value(total / torch.clamp(count, min=1.0), axes)
 
 
-def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
-                          chunk_tokens: int, group=None):
-    """Token-mean NLL without materializing [B, S, vocab] logits: the
-    output projection and log-softmax run per chunk of tokens under
-    ``torch.utils.checkpoint``, so the backward recomputes one chunk's
-    logits at a time (the reference's rematerialized scan). The tail is
-    padded with weight 0; the sum is divided by max(sum(mask), 1).
-    ``group``: the group the tokens are a sequence shard of (None: not
-    sharded), over which the mask is summed."""
+def _ce_total(hidden, lm_head, targets, mask, chunk_tokens: int):
+    """(summed NLL, summed weight) of chunked_cross_entropy."""
     dim = hidden.shape[-1]
     flat_h = hidden.reshape(-1, dim)
     flat_t = targets.reshape(-1).long()
@@ -460,40 +591,108 @@ def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
                 flat_m[lo:lo + chunk])
         total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False)
                          if remat else _ce_chunk(*args))
-    return _token_mean(total, flat_m.sum(), group)
+    return total, flat_m.sum()
+
+
+def chunked_cross_entropy(hidden, lm_head, targets, mask=None, *,
+                          chunk_tokens: int, group=None):
+    """Token-mean NLL without materializing [B, S, vocab] logits: the
+    output projection and log-softmax run per chunk of tokens under
+    ``torch.utils.checkpoint``, so the backward recomputes one chunk's
+    logits at a time (the reference's rematerialized scan). The tail is
+    padded with weight 0; the sum is divided by max(sum(mask), 1).
+    ``group``: the group the tokens are a sequence shard of (None: not
+    sharded), over which the mask is summed."""
+    total, count = _ce_total(hidden, lm_head, targets, mask, chunk_tokens)
+    axes = () if group is None else Layout.from_group(
+        group, hidden.device).token_axes()
+    return _token_mean(total, count, axes)
 
 
 def llama_loss(params: Params, tokens, targets, config: LlamaConfig,
-               group=None, mask=None):
+               group=None, mask=None, *, mesh=None,
+               rules: Optional[ShardingRules] = None):
     """Next-token cross-entropy, f32 scalar, plus ``moe_aux_weight`` x
     the mean per-layer load-balancing loss for an MoE config.
     ``config.ce_chunk_tokens`` switches to the chunked loss that never
     materializes the [B, S, vocab] logits; ``mask`` [B, S] weighs each
     token. With ring or Ulysses attention, tokens, targets and mask are
     this rank's sequence shard, and the mean runs over the group's
-    tokens."""
-    group = _seq_group(config, group, params["lm_head"].device)[0]
-    if config.ce_chunk_tokens:
-        hidden, aux = llama_forward(params, tokens, config, group,
-                                    return_aux=True, return_hidden=True)
-        loss = chunked_cross_entropy(hidden, params["lm_head"], targets,
-                                     mask,
-                                     chunk_tokens=config.ce_chunk_tokens,
-                                     group=group)
+    tokens; with ``mesh`` and ``rules``, they are this rank's shard of
+    the batch and ``params`` its local shards, and the mean runs over
+    the mesh's token axes (see the module docstring)."""
+    c = config
+    plan = _plan(c, group, mesh, rules, params)
+    axes = plan.token_axes()
+    if c.ce_chunk_tokens:
+        hidden, aux = _forward(params, tokens, c, plan, return_hidden=True)
+        total, count = _ce_total(hidden, plan.leaf(params, "lm_head"),
+                                 targets, mask, c.ce_chunk_tokens)
+        loss = _token_mean(total, count, axes)
     else:
-        logits, aux = llama_forward(params, tokens, config, group,
-                                    return_aux=True)
+        logits, aux = _forward(params, tokens, c, plan, return_hidden=False)
         logp = torch.log_softmax(logits, dim=-1)
         ll = logp.gather(-1, targets[..., None].long())[..., 0]
         if mask is None:
-            loss = _token_mean(-ll.sum(), ll.new_full((), ll.numel()),
-                               group)
+            loss = _token_mean(-ll.sum(), ll.new_full((), ll.numel()), axes)
         else:
             mask = mask.float()
-            loss = _token_mean(-(ll * mask).sum(), mask.sum(), group)
-    if config.moe_experts:
-        loss = loss + config.moe_aux_weight * aux / config.n_layers
+            loss = _token_mean(-(ll * mask).sum(), mask.sum(), axes)
+    if c.moe_experts:
+        loss = loss + c.moe_aux_weight * aux / c.n_layers
     return loss
+
+
+def llama_sharding_rules(mode: str = "fsdp_tp") -> ShardingRules:
+    """Sharding rules for this parameter tree (leading axis = layers),
+    the reference's: ddp | fsdp | tp | fsdp_tp | ep. MoE trees need no
+    flag: ndim-constrained rule variants shard the 4-D expert-stacked
+    FFN weights on D/H (never the expert axis), and ``ep`` splits them
+    on the expert axis."""
+    def ffn(spec_in: P, spec_out: P):
+        # 4-D variants for MoE expert-stacked weights [L, E, D, H]
+        # (matched by ndim, so dense 3-D weights fall through).
+        moe_in = P(None, None, *spec_in[1:])
+        moe_out = P(None, None, *spec_out[1:])
+        return [
+            (r"layers/(w1|w3)", moe_in, 4),
+            (r"layers/w2", moe_out, 4),
+            (r"layers/(wq|wk|wv|w1|w3)", spec_in),
+            (r"layers/(wo|w2)", spec_out),
+        ]
+
+    if mode == "ddp":
+        return ShardingRules(rules=[(r".*", P())])
+    if mode == "fsdp":
+        return ShardingRules(rules=[
+            (r"embedding", P("fsdp", None)),
+            (r"lm_head", P(None, "fsdp")),
+            *ffn(P(None, "fsdp", None), P(None, None, "fsdp")),
+            (r".*", P()),
+        ])
+    if mode == "tp":
+        return ShardingRules(rules=[
+            (r"embedding", P(None, "model")),
+            (r"lm_head", P(None, "model")),
+            *ffn(P(None, None, "model"), P(None, "model", None)),
+            (r".*", P()),
+        ])
+    if mode == "fsdp_tp":
+        return ShardingRules(rules=[
+            (r"embedding", P("fsdp", "model")),
+            (r"lm_head", P(None, ("fsdp", "model"))),
+            *ffn(P(None, "fsdp", "model"), P(None, "model", "fsdp")),
+            (r".*", P()),
+        ])
+    if mode == "ep":
+        # Expert parallelism: expert-stacked FFN weights [L, E, D, H]
+        # split on the "expert" axis (parallel/moe.py); attention, the
+        # router and the embeddings replicate.
+        return ShardingRules(rules=[
+            (r"layers/(w1|w2|w3)", P(None, "expert", None, None)),
+            (r".*", P()),
+        ])
+    raise ValueError(f"unknown sharding mode {mode}")
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,10 @@ reference's config choice does. On the card the kernels take head_dim
 64, 72 or 128 and raise otherwise. LayerNorm, the tanh GELU and the
 patchify reshapes are PyTorch ops (jnp in the reference, with no Pallas
 twin), and the products are ``torch.matmul``.
+
+``vit_sharding_rules`` and ``clip_sharding_rules`` are the reference's
+rules for these trees (``parallel.sharding.shard_pytree`` cuts each
+rank's shards by them); the forward runs on whole parameters.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import _layer, remat_wrap
 from ray_tpu_torch.ops.attention import _attention_reference, flash_attention
+from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, Any]
 
@@ -267,6 +272,42 @@ def vit_loss(params: Params, images, labels, config: ViTConfig):
     return -logp.gather(-1, labels[:, None].long()).mean()
 
 
+# mode -> (layer in-projection, layer out-projection, embedding) specs;
+# shared by vit_sharding_rules, clip_sharding_rules and
+# dit_sharding_rules (layer specs have a leading None for the stacked
+# axis).
+_MODE_SPECS = {
+    "fsdp": (P(None, "fsdp", None), P(None, None, "fsdp"),
+             P("fsdp", None)),
+    "tp": (P(None, None, "model"), P(None, "model", None),
+           P(None, "model")),
+    "fsdp_tp": (P(None, "fsdp", "model"), P(None, "model", "fsdp"),
+                P("fsdp", "model")),
+}
+
+
+def _mode_specs(mode: str):
+    if mode not in _MODE_SPECS:
+        raise ValueError(f"unknown sharding mode {mode}")
+    return _MODE_SPECS[mode]
+
+
+def vit_sharding_rules(mode: str = "fsdp") -> ShardingRules:
+    """ddp | fsdp | tp | fsdp_tp over the stacked-layer tree (leading
+    axis = layers, like llama_sharding_rules)."""
+    if mode == "ddp":
+        return ShardingRules(rules=[(r".*", P())])
+    spec_in, spec_out, embed = _mode_specs(mode)
+    return ShardingRules(rules=[
+        (r"patch_embed", embed),
+        (r"layers/(wq|wk|wv|w1)", spec_in),
+        (r"layers/(wo|w2)", spec_out),
+        # classifier head [D, n_classes]: the embedding's layout
+        (r"head_w", embed),
+        (r".*", P()),
+    ])
+
+
 # ---------------------------------------------------------------------------
 # CLIP dual encoder
 # ---------------------------------------------------------------------------
@@ -385,3 +426,19 @@ def clip_loss(params: Params, images, tokens, config: CLIPConfig):
     li = -torch.log_softmax(logits, dim=-1).gather(1, labels).mean()
     lt = -torch.log_softmax(logits.T, dim=-1).gather(1, labels).mean()
     return 0.5 * (li + lt)
+
+
+def clip_sharding_rules(mode: str = "fsdp") -> ShardingRules:
+    """One rule set over the combined {vision, text, proj_*} tree: the
+    tower rules are path-prefixed copies of vit_sharding_rules."""
+    if mode == "ddp":
+        return ShardingRules(rules=[(r".*", P())])
+    in_s, out_s, emb = _mode_specs(mode)
+    return ShardingRules(rules=[
+        (r"(vision|text)/layers/(wq|wk|wv|w1)", in_s),
+        (r"(vision|text)/layers/(wo|w2)", out_s),
+        (r"vision/patch_embed", emb),
+        (r"text/embedding", emb),
+        (r"proj_(v|t)", emb),
+        (r".*", P()),
+    ])

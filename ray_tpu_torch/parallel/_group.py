@@ -78,12 +78,3 @@ def shift(tensors: Sequence[torch.Tensor], group, rank: int,
                     [(torch.empty(t.shape, dtype=t.dtype, device=t.device),
                       prv) for t in tensors], group)
 
-
-def all_reduce_sum(t: torch.Tensor, group, size: int) -> torch.Tensor:
-    """A detached copy of ``t`` summed over ``group`` (``t`` itself at
-    world 1)."""
-    if size == 1:
-        return t.detach()
-    total = t.detach().clone()
-    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-    return total

@@ -96,11 +96,20 @@ def make_step(params: Params, loss_fn, lr: float = 3e-4,
 
 
 def make_train_step(cfg: LlamaConfig, params: Params, lr: float = 3e-4,
-                    weight_decay: float = 0.01, group=None, optimizer=None):
+                    weight_decay: float = 0.01, group=None, optimizer=None,
+                    *, mesh=None, rules=None):
     """``step(tokens, targets) -> loss``: :func:`make_step` over
     ``llama_loss``. With ring or Ulysses attention, tokens and targets
     are this rank's sequence shard over ``group`` (None: the default
-    group, or world 1), and the grads are summed over it."""
+    group, or world 1), and the grads are summed over it. With ``mesh``
+    and ``rules``, ``params`` are this rank's local shards and tokens and
+    targets its shard of the batch; the loss's backward leaves every
+    shard's full gradient, so AdamW steps each shard on its own."""
+    if mesh is not None:
+        return make_step(
+            params, lambda tokens, targets: llama_loss(
+                params, tokens, targets, cfg, mesh=mesh, rules=rules),
+            lr, weight_decay, None, optimizer)
     if cfg.attention in SEQ_PARALLEL:
         group = _group.resolve(group, params["lm_head"].device)[0]
     return make_step(

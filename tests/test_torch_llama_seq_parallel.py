@@ -133,17 +133,6 @@ def test_one_training_step_matches_optax(port, jax_side):
                                        rtol=0, err_msg=str(path))
 
 
-@pytest.mark.parametrize("attention", ["ring", "ulysses"])
-def test_moe_with_sequence_parallelism_names_item_5_4(attention):
-    cfg = tl.LlamaConfig.tiny_moe(attention=attention)
-    params = tl.llama_init(0, cfg, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="5.4"):
-        tl.llama_forward(params, toks, cfg)
-    with pytest.raises(NotImplementedError, match="5.4"):
-        tl.llama_loss(params, toks, toks, cfg)
-
-
 def test_single_device_attention_takes_no_group():
     cfg = tl.LlamaConfig.tiny()
     params = tl.llama_init(0, cfg, device="cpu")
