@@ -23,6 +23,15 @@ ddp, fsdp, tp and fsdp_tp, and a 2-layer Mixtral-8x7B-width one under
 ep with flash and with ring attention, each loss and grad bit-equal to
 the unsharded run and each run launching K1-K4 exactly as a training
 step does,
+(3d, ``sharded_vision``) ViT-B/16, CLIP and DiT-XL/2 at full width and
+depth through the same world-1 mesh under the four modes, each loss and
+grad bit-equal to the unsharded run with K1-K3 launched as in the
+unsharded step, then three fsdp_tp training steps of each in turns with
+unsharded ones (host clock and CUDA events),
+(3e, ``grad_sync``) DDP and ZeRO-1 on DiT-XL/2's f32 parameters (675 M)
+from the same state and gradients, within 1e-5 of each other after three
+steps, each step's ms beside a fused AdamW step's, and Anakin's lockstep
+step over 4 virtual shards on the card against the CPU,
 (4) ``ContinuousBatchingEngine`` serving Llama-3-8B at full width and
 depth in bf16 from random seeded weights, (5) the same engine with int8
 FFN weights, then the engine's scheduling features on the same weights
@@ -2007,6 +2016,295 @@ def sharded(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: ViT, CLIP and DiT on sharded parameters through a world-1 mesh
+# ---------------------------------------------------------------------------
+
+# setup_vision's models (ViT-B/16 at 64, CLIP at 32, DiT-XL/2 at 32) and
+# the name of the unsharded phase each one's timed steps take turns with
+VISION_SHARD_MODELS = {"vit": "vision_train", "clip": "clip_step",
+                       "dit_xl": "dit_xl_train"}
+VISION_MESH_STEPS = 3
+
+
+def vision_loss_and_grads(model, dev, **kw):
+    """``setup_vision(model, dev, **kw)``'s loss and the grads of every
+    leaf (no update; DiT's adaLN-Zero leaves drawn N(0, ADALN_STD^2), or
+    most grads would be zero) -> (loss, grads, launches)."""
+    import torch
+    from ray_tpu_torch.scripts import bench_train as bt
+    if model.startswith("dit"):
+        kw["adaln_std"] = ADALN_STD
+    _cfg, params, step = bt.setup_vision(model, dev, **kw)
+    reset_counts()
+    loss = step.loss_fn()
+    grads = torch.autograd.grad(loss, bt.parameters(params))
+    torch.cuda.synchronize()
+    return loss.detach(), grads, read_counts()
+
+
+def vision_steps_in_turns(model, dev, mesh):
+    """A warm-up, then VISION_MESH_STEPS fsdp_tp mesh steps in turns with
+    as many unsharded ones of ``setup_vision(model)`` (its own parameters
+    and AdamW each), every step launching what the unsharded step
+    launches and giving its loss; host ms (ended by ``loss.item()``) and
+    CUDA-event ms -> (fields, launches summed over the steps)."""
+    import torch
+    from ray_tpu_torch.scripts import bench_train as bt
+    steps = {"unsharded": bt.setup_vision(model, dev)[2],
+             "fsdp_tp": bt.setup_vision(model, dev, mesh=mesh,
+                                        mode="fsdp_tp")[2]}
+    rows = {name: [] for name in steps}
+    counts, want = None, None
+    for i in range(1 + VISION_MESH_STEPS):
+        for name, fn in steps.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            reset_counts()
+            t0 = time.perf_counter()
+            start.record()
+            loss = fn()
+            end.record()
+            loss = loss.item()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            step_counts = read_counts()
+            want = want or step_counts
+            check(step_counts == want, f"{model} {name} step {i} launches "
+                  f"{step_counts} != {want}")
+            counts = add_counts(counts, step_counts)
+            if i:
+                rows[name].append((loss, host_ms, start.elapsed_time(end)))
+    losses = [r[0] for pair in zip(rows["unsharded"], rows["fsdp_tp"])
+              for r in pair]
+    # at world 1 the two runs take the same steps from the same state
+    check(all(math.isfinite(x) for x in losses)
+          and losses[0::2] == losses[1::2],
+          f"{model}: losses in turns (unsharded, fsdp_tp, ...): {losses}")
+    fields = dict(steps=VISION_MESH_STEPS, mode="fsdp_tp",
+                  turns_with=VISION_SHARD_MODELS[model],
+                  losses_in_turns=losses, launches_per_step=want)
+    for i, clock in ((1, "host"), (2, "event")):
+        means = {name: sum(r[i] for r in rs) / len(rs)
+                 for name, rs in rows.items()}
+        fields[f"{clock}_ms"] = {name: [r[i] for r in rs]
+                                 for name, rs in rows.items()}
+        fields[f"{clock}_mean_ms"] = means
+        fields[f"{clock}_ratio_mesh_to_unsharded"] = (
+            means["fsdp_tp"] / means["unsharded"])
+    del steps
+    free()
+    return fields, counts
+
+
+def sharded_vision(dev):
+    """Phase 3d: ViT-B/16, CLIP and DiT-XL/2 at full width and depth
+    (``bench_train.setup_vision``: seed 0's weights, seed 1's batch),
+    bf16, remat, through a world-1 mesh over a world-1 NCCL group: each
+    model's loss and grads under ddp, fsdp, tp and fsdp_tp bit-equal to
+    the unsharded run's, each run launching K1-K3 as the unsharded run
+    does (K1 2L, K2 L, K3 L); then VISION_MESH_STEPS fsdp_tp training
+    steps of each in turns with unsharded ones -> (fields, launches of
+    the sharded runs and of every timed step)."""
+    import torch
+    fields, counts = {}, None
+    with nccl_world1(dev):
+        mesh = world1_mesh(dev)
+        for model in VISION_SHARD_MODELS:
+            want_loss, want_grads, want_counts = vision_loss_and_grads(
+                model, dev)
+            n_layers = want_counts["flash_attention_bwd_dq"]
+            check(n_layers > 0 and want_counts
+                  == expected_encoder_counts(n_layers),
+                  f"{model}: unsharded launches {want_counts}")
+            runs = {}
+            for mode in SHARD_MODES:
+                t0 = time.perf_counter()
+                loss, grads, run_counts = vision_loss_and_grads(
+                    model, dev, mesh=mesh, mode=mode)
+                seconds = time.perf_counter() - t0
+                what = f"{model} {mode} at world 1"
+                check(run_counts == want_counts,
+                      f"{what}: launches {run_counts} != {want_counts}")
+                equal = [torch.equal(g, w)
+                         for g, w in zip(grads, want_grads)]
+                check(bool(torch.isfinite(loss))
+                      and torch.equal(loss, want_loss) and all(equal),
+                      f"{what}: loss {loss.item()} vs {want_loss.item()}, "
+                      f"{equal.count(False)} of {len(equal)} grads differ")
+                runs[mode] = dict(loss=loss.item(),
+                                  bit_equal_to_unsharded=True,
+                                  leaves=len(grads), seconds=seconds,
+                                  launches=run_counts)
+                counts = add_counts(counts, run_counts)
+                del grads
+            del want_grads
+            free()
+            timed, c = vision_steps_in_turns(model, dev, mesh)
+            counts = add_counts(counts, c)
+            fields[model] = dict(runs=runs, timed_steps=timed)
+    return fields, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: gradient sync (DDP, ZeRO-1, Anakin over virtual shards)
+# ---------------------------------------------------------------------------
+
+GRAD_SYNC_STEPS = 3
+GRAD_SYNC_ATOL = 1e-5
+ANAKIN_SHARDS = 4
+
+
+def timed_call(fn):
+    """(``fn()``, host ms, CUDA-event ms) of one call."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def _tree_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_map(fn, v) for v in node]
+    return fn(node)
+
+
+def ddp_and_zero1(dev):
+    """DDPOptimizer and Zero1Optimizer (Adam, lr 1e-4) over a world-1
+    NCCL group on DiT-XL/2's parameters in f32, from the same state and
+    the same gradients (one bf16 loss-and-grad of
+    ``setup_vision("dit_xl")``'s batch with its adaLN-Zero leaves drawn
+    N(0, ADALN_STD^2), cast to f32), GRAD_SYNC_STEPS steps each: the
+    parameters within GRAD_SYNC_ATOL of each other; each step's host and
+    CUDA-event ms beside a fused AdamW step's over the same f32 leaves
+    -> (fields, launches of the bf16 loss and grads)."""
+    import torch
+    from ray_tpu_torch.scripts import bench_train as bt
+    from ray_tpu_torch.train.collective import DDPOptimizer, Zero1Optimizer
+    _cfg, params, step = bt.setup_vision("dit_xl", dev,
+                                         adaln_std=ADALN_STD)
+    leaves16 = bt.parameters(params)
+    reset_counts()
+    loss = step.loss_fn()
+    grads16 = torch.autograd.grad(loss, leaves16)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    by_id = {id(t): g for t, g in zip(leaves16, grads16)}
+    grads = _tree_map(lambda t: by_id[id(t)].float(), params)
+    start = _tree_map(lambda t: t.detach().float(), params)
+    n_params = sum(t.numel() for t in leaves16)
+    del step, by_id, grads16, leaves16, params, loss
+    free()
+    adam = functools.partial(torch.optim.Adam, lr=1e-4, eps=1e-8)
+    ms = {"ddp": [], "zero1": [], "fused_adamw": []}
+    stepped = {}
+    for name, cls in (("ddp", DDPOptimizer), ("zero1", Zero1Optimizer)):
+        opt, p = cls(adam, start), start
+        for _ in range(GRAD_SYNC_STEPS):
+            p, *row = timed_call(functools.partial(opt.step, p, grads))
+            ms[name].append(row)
+        stepped[name] = (opt, p)
+    (ddp, p_ddp), (zero1, p_z1) = stepped["ddp"], stepped["zero1"]
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        bt.parameters(p_ddp), bt.parameters(p_z1)))
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        bt.parameters(p_ddp), bt.parameters(start)))
+    state_bytes = {"ddp": ddp.optimizer_state_bytes(),
+                   "zero1": zero1.optimizer_state_bytes()}
+    check(diff <= GRAD_SYNC_ATOL and moved > 0,
+          f"grad_sync: ZeRO-1 {diff} from DDP (> {GRAD_SYNC_ATOL}), "
+          f"DDP moved the parameters by {moved}")
+    del ddp, zero1, p_ddp, p_z1, stepped
+    free()
+    leaves = [t.clone() for t in bt.parameters(start)]
+    for t, g in zip(leaves, bt.parameters(grads)):
+        t.grad = g
+    fused = torch.optim.AdamW(leaves, lr=1e-4, eps=1e-8, weight_decay=0.0,
+                              fused=True)
+    for _ in range(GRAD_SYNC_STEPS):
+        ms["fused_adamw"].append(timed_call(fused.step)[1:])
+    del fused, leaves, start, grads
+    free()
+    fields = dict(model="DiT-XL/2", params=n_params,
+                  flat_gb=n_params * 4 / 1e9, steps=GRAD_SYNC_STEPS,
+                  tolerance=GRAD_SYNC_ATOL, max_abs_diff_zero1_vs_ddp=diff,
+                  max_abs_update=moved, optimizer_state_bytes=state_bytes)
+    for i, clock in ((0, "host"), (1, "event")):
+        fields[f"{clock}_ms"] = {k: [r[i] for r in v] for k, v in ms.items()}
+    return fields, counts
+
+
+def anakin_shards_vs_cpu(dev):
+    """ANAKIN_SHARDS virtual shards of Anakin's lockstep step at 16 envs
+    each, RL_UPDATES_VS_CPU updates on the card and on the CPU from the
+    same weights and the same draws (each shard its own, made once with
+    a CPU generator): the card's shards identical to each other, and
+    within RL_ATOL of the CPU's parameters and losses."""
+    import copy
+    import torch
+    from ray_tpu_torch.rl.env import CartPoleTensor
+    from ray_tpu_torch.rl.env_runner import draw_rollout_noise
+    from ray_tpu_torch.rl.podracer import build_lockstep, make_optimizer
+    from ray_tpu_torch.rl.rl_module import RLModuleSpec
+    cfg = anakin_config(16)
+    env = CartPoleTensor()
+    spec = RLModuleSpec(env.observation_space, env.action_space, cfg.hidden)
+    gen = torch.Generator().manual_seed(SEED)
+    n, t = cfg.num_envs_per_device, cfg.rollout_len
+    states = [env.draw_reset((n,), gen, "cpu") for _ in range(ANAKIN_SHARDS)]
+    noises = [[draw_rollout_noise(spec, env, t, n, gen, "cpu")
+               for _ in range(ANAKIN_SHARDS)]
+              for _ in range(RL_UPDATES_VS_CPU)]
+    base = spec.init(cfg.seed, "cpu")
+
+    def run(device):
+        modules = [copy.deepcopy(base).to(device)
+                   for _ in range(ANAKIN_SHARDS)]
+        optimizers = [make_optimizer(m, cfg) for m in modules]
+        step = build_lockstep(env, spec, cfg)
+        shards = [env.reset(s.to(device)) for s in states]
+        st, ob = [x[0] for x in shards], [x[1] for x in shards]
+        losses = []
+        for noise in noises:
+            st, ob, m, _cols = step(modules, optimizers, st, ob, noise)
+            losses.append(m["total_loss"].item())
+        return [{k: v.detach().cpu() for k, v in m.state_dict().items()}
+                for m in modules], losses
+
+    card, cpu = run(dev), run(torch.device("cpu"))
+    identical = all(torch.equal(v, card[0][0][k]) for sd in card[0][1:]
+                    for k, v in sd.items())
+    param_err = max((card[0][0][k] - cpu[0][0][k]).abs().max().item()
+                    for k in cpu[0][0])
+    loss_err = max(abs(a - b) for a, b in zip(card[1], cpu[1]))
+    check(identical, "grad_sync: Anakin's shards on the card differ")
+    check(param_err <= RL_ATOL and loss_err <= RL_ATOL,
+          f"grad_sync: Anakin's shards {param_err} (params), {loss_err} "
+          f"(losses) from the CPU's > {RL_ATOL}")
+    return dict(shards=ANAKIN_SHARDS, envs_per_shard=n,
+                updates=RL_UPDATES_VS_CPU, tolerance=RL_ATOL,
+                shards_identical=identical, max_abs_err_params=param_err,
+                max_abs_err_losses=loss_err, losses_card=card[1],
+                losses_cpu=cpu[1])
+
+
+def grad_sync(dev):
+    """Phase 3e: DDP and ZeRO-1 at DiT-XL/2 width through a world-1 NCCL
+    group (``ddp_and_zero1``), then Anakin over virtual shards on the card
+    against the CPU -> (fields, launches)."""
+    with nccl_world1(dev):
+        fields, counts = ddp_and_zero1(dev)
+    fields["anakin"] = anakin_shards_vs_cpu(dev)
+    return fields, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training Llama-3-8B at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -3101,7 +3399,7 @@ DIT_XL_ATTENTION = ((32, 256, 16, 16, False), (8, 1024, 16, 16, False),
                     (4, 197, 16, 16, False), (4, 197, 16, 16, True),
                     (4, 256, 16, 4, False), (4, 197, 16, 4, True))
 VISION_STEPS = 3
-CLIP_BATCH, VS_CPU_BATCH = 32, 4
+VS_CPU_BATCH = 4
 DIT_SAMPLES, DIT_SAMPLE_STEPS, DIT_GUIDANCE = 8, 10, 1.5
 ADALN_STD = 0.02
 # Mixtral-8x7B cut from 32 layers to 8: the whole model is ~93 GB in
@@ -3206,27 +3504,16 @@ def vision_train(dev, shared):
 
 def clip_step(dev, shared):
     """CLIP (ViT-B/16 image tower, 12-layer 512-wide causal text tower at
-    S 77) at batch CLIP_BATCH: both embeddings, then one loss-and-grad
-    step and one AdamW update. Every K1 launch's mask is recorded: the
-    image tower's run non-causal, the text tower's causal."""
+    S 77) at ``setup_vision("clip")``'s batch (32): both embeddings, then
+    one loss-and-grad step and one AdamW update. Every K1 launch's mask
+    is recorded: the image tower's run non-causal, the text tower's
+    causal."""
     import torch
-    from ray_tpu_torch.models import (
-        CLIPConfig, clip_encode_image, clip_encode_text, clip_init,
-        clip_loss, unstack_layers)
+    from ray_tpu_torch.models import clip_encode_image, clip_encode_text
     from ray_tpu_torch.ops import attention as att
-    from ray_tpu_torch.scripts.bench_train import make_step, parameters
-    cfg = CLIPConfig()
-    params = clip_init(SEED, cfg, dev)
-    params["vision"] = unstack_layers(params["vision"])
-    params["text"] = unstack_layers(params["text"])
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 2)
-    v = cfg.vision
-    images = torch.randn((CLIP_BATCH, v.image_size, v.image_size,
-                          v.channels), generator=gen, device=dev)
-    tokens = torch.randint(0, cfg.text.vocab_size,
-                           (CLIP_BATCH, cfg.text.max_seq_len),
-                           generator=gen, device=dev)
+    from ray_tpu_torch.scripts import bench_train as bt
+    cfg, params, step = bt.setup_vision("clip", dev)
+    images, tokens = step.batch["images"], step.batch["tokens"]
     masks = []
     flash_forward = att._flash_forward
 
@@ -3241,9 +3528,7 @@ def clip_step(dev, shared):
             img = clip_encode_image(params, images, cfg)
             txt = clip_encode_text(params, tokens, cfg)
         encode_counts = read_counts()
-        step = make_step(params, lambda: clip_loss(params, images, tokens,
-                                                   cfg))
-        leaves = parameters(params)
+        leaves = bt.parameters(params)
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         t0 = time.perf_counter()
@@ -3270,7 +3555,8 @@ def clip_step(dev, shared):
     check(masks.count(False) == 3 * lv and masks.count(True) == 3 * lt,
           f"clip_step: K1 masks {masks.count(False)} non-causal, "
           f"{masks.count(True)} causal")
-    return dict(batch=CLIP_BATCH, text_seq=cfg.text.max_seq_len,
+    return dict(batch=bt.VISION_BATCH["clip"],
+                text_seq=cfg.text.max_seq_len,
                 loss=loss, step_ms=step_ms, worst_norm_err=worst,
                 k1_noncausal=masks.count(False), k1_causal=masks.count(True),
                 launches_per_step=step_counts,
@@ -3343,27 +3629,6 @@ def dit_sample_phase(dev, shared, model="dit"):
                 samples_per_s=DIT_SAMPLES / seconds), counts
 
 
-def with_random_adaln(params, seed, std):
-    """DiT ``params`` (layers unstacked) with the adaLN-Zero leaves
-    (mod_w, mod_b, final_mod_*, final_w) drawn N(0, std^2) from ``seed``:
-    at init they are zero, the blocks the identity and most grads zero,
-    where a comparison proves nothing."""
-    import torch
-    gen = torch.Generator(device=params["final_w"].device)
-    gen.manual_seed(seed)
-
-    def draw(t):
-        return (torch.randn(t.shape, generator=gen, device=t.device)
-                * std).to(t.dtype)
-
-    out = dict(params, layers=[dict(lp, mod_w=draw(lp["mod_w"]),
-                                    mod_b=draw(lp["mod_b"]))
-                               for lp in params["layers"]])
-    for name in ("final_mod_w", "final_mod_b", "final_w"):
-        out[name] = draw(params[name])
-    return out
-
-
 def vision_vs_cpu(dev, shared):
     """2-layer full-width ViT-B/16, DiT-B/2 and DiT-XL/2 (random adaLN
     leaves; DiT-XL/2 at head_dim 72), loss and grads at batch
@@ -3375,7 +3640,7 @@ def vision_vs_cpu(dev, shared):
     from ray_tpu_torch.models import (
         DiTConfig, ViTConfig, dit_init, dit_loss, draw_dit_noise,
         unstack_layers, vit_init, vit_loss)
-    from ray_tpu_torch.scripts.bench_train import parameters
+    from ray_tpu_torch.scripts.bench_train import parameters, random_adaln
     rng = np.random.default_rng(SEED)
     vit = ViTConfig.base(n_classes=1000, pool="cls", n_layers=2)
     images = torch.from_numpy(rng.standard_normal(
@@ -3396,9 +3661,9 @@ def vision_vs_cpu(dev, shared):
                         x0.to(d), c, dit_labels.to(d))
 
     def dit_params(cfg):
-        return with_random_adaln(unstack_layers(dit_init(
-            SEED, dataclasses.replace(cfg, dtype=torch.float32), "cpu")),
-            SEED + 6, ADALN_STD)
+        return unstack_layers(random_adaln(dit_init(
+            SEED, dataclasses.replace(cfg, dtype=torch.float32), "cpu"),
+            ADALN_STD, SEED + 6))
 
     dit_top = ("patch_embed", "time_w1", "label_embed", "final_w")
     dit_stacked = ("wq", "w2", "mod_w")
@@ -3640,6 +3905,16 @@ def main() -> int:
     emit("sharded", seconds=time.perf_counter() - t0,
          launches=counts_sharded, **shard_fields)
     free()
+    t0 = time.perf_counter()
+    vision_fields, counts_vision = sharded_vision(dev)
+    emit("sharded_vision", seconds=time.perf_counter() - t0,
+         launches=counts_vision, **vision_fields)
+    free()
+    t0 = time.perf_counter()
+    sync_fields, counts_sync = grad_sync(dev)
+    emit("grad_sync", seconds=time.perf_counter() - t0,
+         launches=counts_sync, **sync_fields)
+    free()
 
     rng = __import__("numpy").random.default_rng(SEED)
     prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
@@ -3704,7 +3979,8 @@ def main() -> int:
                       + prefill_vs_cpu["launches"][kname]
                       + grads_vs_cpu["launches"][kname]
                       + counts_ckpt[kname] + counts_models[kname]
-                      + counts_seq[kname] + counts_sharded[kname]),
+                      + counts_seq[kname] + counts_sharded[kname]
+                      + counts_vision[kname] + counts_sync[kname]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -16,7 +16,8 @@ keeps what works over batches the caller already holds:
   memory and issues a non-blocking copy on a side stream of the target
   device; the consumer's stream waits on the copy's event before it is
   handed the batch, so the copy of batch n+1 overlaps the step on
-  batch n.
+  batch n. With ``sharding`` (a mesh and a batch spec) the thread
+  stages only this rank's shard of each column.
 """
 
 from __future__ import annotations
@@ -313,9 +314,25 @@ class _DeviceBatchIter(_PrefetchingIter):
         return tensors
 
 
+def _shard_batches(batches: Iterable[Dict[str, np.ndarray]], sharding):
+    """Each batch cut to this rank's shard of every column under
+    ``sharding``: ``(mesh, spec)``, the spec's entries naming the mesh
+    axes each dimension is split over (``P(("data", "fsdp"))``: the rows
+    over data x fsdp, data major)."""
+    from ray_tpu_torch.parallel.sharding import (
+        P, local_shard, mesh_coords, mesh_shape)
+    mesh, spec = sharding
+    sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+    for batch in batches:
+        yield {k: np.ascontiguousarray(local_shard(
+            v, P(*spec[:np.ndim(v)]), sizes, coords))
+            for k, v in batch.items()}
+
+
 def iter_device_batches(batches: Iterable[Dict[str, np.ndarray]], *,
                         dtypes=None, device: DeviceLike = None,
-                        prefetch: Optional[int] = None) -> _DeviceBatchIter:
+                        prefetch: Optional[int] = None,
+                        sharding=None) -> _DeviceBatchIter:
     """Yield ``batches`` (dicts of numpy columns) as dicts of tensors on
     ``device``, staged ``prefetch`` deep (default
     ``DEVICE_PREFETCH_BATCHES``) by a producer thread: the host cast to
@@ -326,13 +343,20 @@ def iter_device_batches(batches: Iterable[Dict[str, np.ndarray]], *,
     next batch overlaps the consumer's step. The returned iterator keeps
     ``wait_seconds_total`` and ``producer_done_time``.
 
+    ``sharding``: ``(mesh, spec)``, where the reference takes a
+    ``NamedSharding``; the thread cuts each column to this rank's shard
+    under the spec (``P(("data", "fsdp"))`` takes this rank's rows of a
+    batch split over data x fsdp) before it stages it, so only that
+    shard crosses to the device.
+
     ``device`` follows the port's device rule: ``None`` is the current
     CUDA device and raises without a GPU; ``"cpu"`` casts on the host
-    and pins nothing. The reference's ``sharding=`` (a batch split over
-    a mesh) comes with the multi-GPU work, ROADMAP.md Queue 1 item 4."""
+    and pins nothing."""
     dev = resolve_device(device)
     depth = max(1, DEVICE_PREFETCH_BATCHES if prefetch is None
                 else prefetch)
+    if sharding is not None:
+        batches = _shard_batches(batches, sharding)
     if dev.type == "cuda":
         source = _stage_on_card(batches, dtypes, dev)
     else:

@@ -18,7 +18,12 @@ is K1 on the card (non-causal) and, under autograd, K2 and K3
 (1152 / 16). LayerNorm, the modulation, GELU and the timestep features
 are PyTorch ops (jnp in the reference), and the products
 ``torch.matmul``. ``dit_sharding_rules`` are the reference's rules for
-this tree; the forward runs on whole parameters.
+this tree. With ``mesh`` and ``rules`` the forward and the loss run on
+this rank's local shards and rows, as ViT's do (models/vit.py):
+Megatron's pairs on ``model`` run on their shards; every other leaf is
+gathered on use, ``mod_w`` too, though its rules split its output
+columns over ``model``: the block cuts that output into six modulation
+vectors, and a rank's column shard would hold pieces of the wrong ones.
 """
 
 from __future__ import annotations
@@ -34,7 +39,10 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import _layer, remat_wrap
 from ray_tpu_torch.models.vit import (
-    _attend, _mode_specs, fan_in_init, gelu, layer_norm, n_layers_of)
+    EncoderPlan, _attend, _mode_specs, encoder_plan, fan_in_init, gelu,
+    layer_norm, n_layers_of)
+from ray_tpu_torch.parallel._sharded import (
+    copy_to, global_mean, local_rows, reduce_from)
 from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, Any]
@@ -173,49 +181,72 @@ def _ada_ln(x, shift, scale, eps: float):
     return h * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
-def _dit_block(layer: Params, x, cond, config: DiTConfig):
+def _dit_block(layer: Params, x, cond, config: DiTConfig,
+               plan: EncoderPlan):
     c = config
-    b, s, d = x.shape
+    b, s, _ = x.shape
+    layer = plan.layer(layer)
+    attn_axis, mlp_axis = plan.attn_model, plan.mlp_model
+    heads = c.n_heads if attn_axis is None else c.n_heads // attn_axis.size
     mod = (cond @ layer["mod_w"] + layer["mod_b"]).to(x.dtype)
     sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
 
     h = _ada_ln(x, sh1, sc1, c.norm_eps).to(x.dtype)
-    q = (h @ layer["wq"]).reshape(b, s, c.n_heads, c.head_dim)
-    k = (h @ layer["wk"]).reshape(b, s, c.n_heads, c.head_dim)
-    v = (h @ layer["wv"]).reshape(b, s, c.n_heads, c.head_dim)
+    h = copy_to(h, attn_axis)  # column-parallel wq / wk / wv
+    q = (h @ layer["wq"]).reshape(b, s, heads, c.head_dim)
+    k = (h @ layer["wk"]).reshape(b, s, heads, c.head_dim)
+    v = (h @ layer["wv"]).reshape(b, s, heads, c.head_dim)
     attn = _attend(q, k, v, c.attention, False)
-    attn = attn.reshape(b, s, d).to(x.dtype) @ layer["wo"]
+    attn = reduce_from(attn.reshape(b, s, heads * c.head_dim).to(x.dtype)
+                       @ layer["wo"], attn_axis)
     x = x + g1[:, None, :] * attn
 
     h = _ada_ln(x, sh2, sc2, c.norm_eps).to(x.dtype)
-    y = gelu(h @ layer["w1"]) @ layer["w2"]
+    h = copy_to(h, mlp_axis)  # column-parallel w1, row-parallel w2
+    y = reduce_from(gelu(h @ layer["w1"]) @ layer["w2"], mlp_axis)
     return x + g2[:, None, :] * y
 
 
-def dit_forward(params: Params, x_t, t, config: DiTConfig, labels=None):
-    """x_t [B, H, W, C] noised input, t [B] in [0, 1], labels [B] int
-    (n_classes = the null class) -> predicted noise [B, H, W, C] f32."""
+def _dit_forward(params: Params, x_t, t, config: DiTConfig, labels,
+                 plan: EncoderPlan):
     c = config
-    x = _patchify(x_t.to(c.dtype), c) @ params["patch_embed"]
-    x = x + params["patch_bias"] + params["pos_embed"]
+    x = _patchify(x_t.to(c.dtype), c) @ plan.leaf(params, "patch_embed")
+    x = x + plan.leaf(params, "patch_bias") + plan.leaf(params, "pos_embed")
 
     temb = timestep_embedding(t, c.time_freq_dim).to(c.dtype)
-    cond = F.silu(temb @ params["time_w1"] + params["time_b1"])
-    cond = cond @ params["time_w2"] + params["time_b2"]
+    cond = F.silu(temb @ plan.leaf(params, "time_w1")
+                  + plan.leaf(params, "time_b1"))
+    cond = cond @ plan.leaf(params, "time_w2") + plan.leaf(params, "time_b2")
     if c.n_classes:
         lab = (torch.full((x.shape[0],), c.n_classes, dtype=torch.long,
                           device=x.device) if labels is None else labels)
-        cond = cond + params["label_embed"][lab]
+        cond = cond + plan.leaf(params, "label_embed")[lab]
 
-    block = remat_wrap(functools.partial(_dit_block, config=c), c.remat)
+    block = remat_wrap(functools.partial(_dit_block, config=c, plan=plan),
+                       c.remat)
     for i in range(n_layers_of(params["layers"])):
         x = block(_layer(params["layers"], i), x, cond)
 
-    fmod = (cond @ params["final_mod_w"] + params["final_mod_b"]).to(x.dtype)
+    fmod = (cond @ plan.leaf(params, "final_mod_w")
+            + plan.leaf(params, "final_mod_b")).to(x.dtype)
     shift, scale = torch.chunk(fmod, 2, dim=-1)
     x = _ada_ln(x, shift, scale, c.norm_eps).to(x.dtype)
-    out = x @ params["final_w"] + params["final_b"]
+    out = x @ plan.leaf(params, "final_w") + plan.leaf(params, "final_b")
     return _unpatchify(out.float(), c)
+
+
+def _plan(params: Params, config: DiTConfig, mesh, rules) -> EncoderPlan:
+    return encoder_plan(params, mesh, rules, config.n_heads, what="DiT")
+
+
+def dit_forward(params: Params, x_t, t, config: DiTConfig, labels=None, *,
+                mesh=None, rules: Optional[ShardingRules] = None):
+    """x_t [B, H, W, C] noised input, t [B] in [0, 1], labels [B] int
+    (n_classes = the null class) -> predicted noise [B, H, W, C] f32.
+    With ``mesh`` and ``rules``, ``params`` are this rank's local shards
+    and ``x_t``, ``t`` and ``labels`` its rows, and so is the output."""
+    return _dit_forward(params, x_t, t, config, labels,
+                        _plan(params, config, mesh, rules))
 
 
 def cosine_alpha_sigma(t):
@@ -240,12 +271,25 @@ def draw_dit_noise(generator: Optional[torch.Generator], shape,
 
 
 def dit_loss(params: Params, noise: Dict[str, torch.Tensor], x0,
-             config: DiTConfig, labels=None, label_drop: float = 0.1):
+             config: DiTConfig, labels=None, label_drop: float = 0.1, *,
+             mesh=None, rules: Optional[ShardingRules] = None):
     """Continuous-time eps-prediction MSE with the draws ``noise``
     (:func:`draw_dit_noise` for x0's shape). With labels, each is
     dropped to the null class where ``noise["drop"] < label_drop``
-    (classifier-free guidance training)."""
+    (classifier-free guidance training). With ``mesh`` and ``rules``,
+    ``x0`` and ``labels`` are this rank's rows of the global batch,
+    ``noise`` holds the global batch's draws, of which the rank takes
+    its rows, and the loss is the global mean."""
     c = config
+    plan = _plan(params, c, mesh, rules)
+    axes = plan.batch_axes()
+    if axes:
+        rows = noise["t"].shape[0]
+        if rows != x0.shape[0] * math.prod(a.size for a in axes):
+            raise ValueError(f"draws for {rows} rows; a mesh's loss takes "
+                             f"the global batch's draws, and x0 holds "
+                             f"{x0.shape[0]} of its rows")
+        noise = {k: local_rows(v, axes) for k, v in noise.items()}
     t, eps = noise["t"], noise["eps"]
     alpha, sigma = cosine_alpha_sigma(t)
     x_t = (alpha[:, None, None, None] * x0.float()
@@ -253,8 +297,8 @@ def dit_loss(params: Params, noise: Dict[str, torch.Tensor], x0,
     if c.n_classes and labels is not None and label_drop > 0:
         labels = torch.where(noise["drop"] < label_drop,
                              torch.full_like(labels, c.n_classes), labels)
-    pred = dit_forward(params, x_t, t, c, labels)
-    return ((pred - eps) ** 2).mean()
+    pred = _dit_forward(params, x_t, t, c, labels, plan)
+    return global_mean((pred - eps) ** 2, axes)
 
 
 def _linspace(start: float, stop: float, num: int, device):

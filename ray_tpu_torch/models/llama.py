@@ -66,7 +66,8 @@ from ray_tpu_torch.ops.rmsnorm import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from ray_tpu_torch.parallel import _group
 from ray_tpu_torch.parallel._sharded import (
-    Layout, all_reduce, copy_to, global_value, reduce_from, use)
+    REPLICATED, Layout, Plan, all_reduce, copy_to, global_value, leaf_specs,
+    reduce_from)
 from ray_tpu_torch.parallel.moe import moe_ffn
 from ray_tpu_torch.parallel.ring_attention import (
     ring_attention, ulysses_attention)
@@ -416,61 +417,33 @@ _ATTN_PAIR = (("wq", "wk", "wv"), ("wo",))
 _FFN_PAIR = (("w1", "w3"), ("w2",))
 
 
-class _Plan:
+class _Plan(Plan):
     """How one forward runs: its sequence group (ring or Ulysses), and
-    with a mesh the layout, every leaf's spec and the axes the layers
-    use sharded. Without either, every leaf is used as it is."""
+    with a mesh the shared :class:`~ray_tpu_torch.parallel._sharded.Plan`
+    with Llama's pairs, head check and expert axis. Without either,
+    every leaf is used as it is."""
 
     def __init__(self, config: LlamaConfig, seq, layout=None, specs=None):
+        super().__init__(layout, specs)
         self.seq_group, self.seq_rank, self.seq_n = seq
-        self.layout, self.specs = layout, specs
-        self.local: Dict[str, tuple] = {}
         self.attn_model = self.ffn_model = self.expert = None
         if specs is None:
             return
-        model = layout.split("model")
-        if model is not None and self._pair_on(_ATTN_PAIR, "model"):
-            if config.n_heads % model.size or config.n_kv_heads % model.size:
-                raise ValueError(
-                    f"the model axis ({model.size}) must divide n_heads "
-                    f"({config.n_heads}) and n_kv_heads "
-                    f"({config.n_kv_heads})")
-            self.attn_model = model
-            self.local.update(dict.fromkeys(sum(_ATTN_PAIR, ()), ("model",)))
-        if (model is not None and not config.moe_experts
-                and self._pair_on(_FFN_PAIR, "model")):
-            self.ffn_model = model
-            self.local.update(dict.fromkeys(sum(_FFN_PAIR, ()), ("model",)))
+        self.attn_model = self.split_pair(_ATTN_PAIR)
+        model = self.attn_model
+        if model is not None and (config.n_heads % model.size
+                                  or config.n_kv_heads % model.size):
+            raise ValueError(
+                f"the model axis ({model.size}) must divide n_heads "
+                f"({config.n_heads}) and n_kv_heads ({config.n_kv_heads})")
+        if not config.moe_experts:
+            self.ffn_model = self.split_pair(_FFN_PAIR)
         expert = layout.split("expert")
         if config.moe_experts and expert is not None and all(
-                self._on(n, 0, "expert") for n in ("w1", "w3", "w2")):
+                self.on(n, 0, "expert") for n in ("w1", "w3", "w2")):
             self.expert = expert
             self.local.update(dict.fromkeys(("w1", "w3", "w2"),
                                             ("expert",)))
-
-    def _on(self, name: str, dim: int, axis: str) -> bool:
-        spec = self.specs.get(name, P())
-        return len(spec) > dim and spec[dim] == axis
-
-    def _pair_on(self, pair, axis: str) -> bool:
-        column, row = pair
-        return (all(self._on(n, 1, axis) for n in column)
-                and all(self._on(n, 0, axis) for n in row))
-
-    def leaf(self, params: Params, name: str):
-        if self.specs is None:
-            return params[name]
-        return use(params[name], self.specs[name], self.layout)
-
-    def layer(self, layer_params: Params) -> Params:
-        if self.specs is None:
-            return layer_params
-        return {name: use(t, self.specs[name], self.layout,
-                          self.local.get(name, ()))
-                for name, t in layer_params.items()}
-
-    def token_axes(self) -> tuple:
-        return () if self.layout is None else self.layout.token_axes()
 
     def moe_axes(self) -> Dict[str, Any]:
         if self.layout is None:
@@ -478,20 +451,6 @@ class _Plan:
         return dict(batch_axes=self.layout.batch_axes(),
                     seq_axis=self.layout.split("seq"),
                     expert_axis=self.expert)
-
-
-def _leaf_specs(params: Params, rules: ShardingRules) -> Dict[str, P]:
-    """The spec of each top-level leaf and (without its layer axis) of
-    each layer leaf, by the paths of the stacked tree
-    (``layers/<name>``), which the rules are written for."""
-    specs = {name: rules.spec_for(name, params[name].ndim)
-             for name in ("embedding", "final_norm", "lm_head")}
-    for name, t in _layer(params["layers"], 0).items():
-        spec = rules.spec_for(f"layers/{name}", t.ndim + 1)
-        if spec and spec[0] is not None:
-            raise ValueError(f"layers/{name}: {spec} splits the layer axis")
-        specs[name] = P(*spec[1:])
-    return specs
 
 
 def _plan(config: LlamaConfig, group, mesh, rules, params: Params) -> _Plan:
@@ -509,7 +468,7 @@ def _plan(config: LlamaConfig, group, mesh, rules, params: Params) -> _Plan:
     if config.attention not in SEQ_PARALLEL and seq.size > 1:
         raise ValueError(f"a seq axis of {seq.size} needs ring or Ulysses "
                          f"attention, not {config.attention!r}")
-    specs = _leaf_specs(params, rules or ShardingRules(rules=[(r".*", P())]))
+    specs = leaf_specs(params, rules or REPLICATED)
     return _Plan(config, (seq.group, seq.rank, seq.size), layout, specs)
 
 

@@ -19,15 +19,23 @@ patchify reshapes are PyTorch ops (jnp in the reference, with no Pallas
 twin), and the products are ``torch.matmul``.
 
 ``vit_sharding_rules`` and ``clip_sharding_rules`` are the reference's
-rules for these trees (``parallel.sharding.shard_pytree`` cuts each
-rank's shards by them); the forward runs on whole parameters.
+rules for these trees. With ``mesh`` and ``rules`` the forwards and
+losses run on this rank's local shards (``parallel.sharding.
+shard_pytree`` of the stacked tree) and this rank's rows of the batch
+(over ``data`` x ``fsdp``, data major): each leaf is gathered where a
+layer uses it, but for Megatron's pairs on ``model`` (column ``wq``,
+``wk``, ``wv`` and row ``wo``; column ``w1`` and row ``w2``), whose
+layers run on their shards with ``model`` dividing the heads
+(parallel/_sharded.py). A loss is the global mean over the batch axes;
+CLIP's gathers both towers' embeddings over them first
+(``gather_rows``), so its loss is global on every rank as it stands.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +43,8 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import _layer, remat_wrap
 from ray_tpu_torch.ops.attention import _attention_reference, flash_attention
+from ray_tpu_torch.parallel._sharded import (
+    Plan, copy_to, gather_rows, global_mean, reduce_from)
 from ray_tpu_torch.parallel.sharding import P, ShardingRules
 
 Params = Dict[str, Any]
@@ -176,20 +186,68 @@ def _attend(q, k, v, attention: str, causal: bool):
     return _attention_reference(q, k, v, causal)
 
 
+# Megatron's pairs of an encoder layer on the model axis: (column, row)
+ATTN_PAIR = (("wq", "wk", "wv"), ("wo",))
+MLP_PAIR = (("w1",), ("w2",))
+
+
+class EncoderPlan(Plan):
+    """The shared plan with an encoder's two pairs: ``attn_model`` and
+    ``mlp_model`` are the model axis where the rules split the pair on
+    it (the layers then run on their shards), else None."""
+
+    def __init__(self, layout=None, specs=None, n_heads: int = 1,
+                 what: str = "encoder"):
+        super().__init__(layout, specs)
+        self.attn_model = self.mlp_model = None
+        if specs is None:
+            return
+        if layout.size("seq") > 1:
+            raise ValueError(f"{what}: a seq axis of {layout.size('seq')}; "
+                             "the vision and diffusion models split the "
+                             "batch only")
+        self.attn_model = self.split_pair(ATTN_PAIR)
+        if self.attn_model is not None and n_heads % self.attn_model.size:
+            raise ValueError(f"{what}: the model axis "
+                             f"({self.attn_model.size}) must divide n_heads "
+                             f"({n_heads})")
+        self.mlp_model = self.split_pair(MLP_PAIR)
+
+
+def encoder_plan(params: Params, mesh, rules: Optional[ShardingRules],
+                 n_heads: int, prefix: str = "", what: str = "encoder"
+                 ) -> EncoderPlan:
+    """The plan of one tower (its tree under ``prefix`` in the rules'
+    paths): :class:`EncoderPlan` on ``mesh``, or the whole-parameter one
+    without a mesh."""
+    if mesh is None:
+        return EncoderPlan()
+    device = params["pos_embed"].device
+    return EncoderPlan.for_mesh(mesh, rules, params, device, prefix,
+                                n_heads=n_heads, what=what)
+
+
 def _encoder_block(layer: Params, x, *, n_heads: int, norm_eps: float,
-                   attention: str, causal: bool):
+                   attention: str, causal: bool, plan: EncoderPlan):
     """One pre-LN block: LN -> MHA -> residual -> LN -> GELU MLP ->
-    residual."""
+    residual. ``plan`` gathers the layer's leaves (on a mesh) and names
+    the model axis of each pair (None: whole)."""
     b, s, d = x.shape
     hd = d // n_heads
+    layer = plan.layer(layer)
+    attn_axis, mlp_axis = plan.attn_model, plan.mlp_model
+    heads = n_heads if attn_axis is None else n_heads // attn_axis.size
     h = layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], norm_eps)
-    q = (h @ layer["wq"]).reshape(b, s, n_heads, hd)
-    k = (h @ layer["wk"]).reshape(b, s, n_heads, hd)
-    v = (h @ layer["wv"]).reshape(b, s, n_heads, hd)
+    h = copy_to(h, attn_axis)  # column-parallel wq / wk / wv
+    q = (h @ layer["wq"]).reshape(b, s, heads, hd)
+    k = (h @ layer["wk"]).reshape(b, s, heads, hd)
+    v = (h @ layer["wv"]).reshape(b, s, heads, hd)
     attn = _attend(q, k, v, attention, causal)
-    x = x + attn.reshape(b, s, d).to(x.dtype) @ layer["wo"]
+    x = x + reduce_from(attn.reshape(b, s, heads * hd).to(x.dtype)
+                        @ layer["wo"], attn_axis)
     h = layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], norm_eps)
-    return x + gelu(h @ layer["w1"]) @ layer["w2"]
+    h = copy_to(h, mlp_axis)  # column-parallel w1, row-parallel w2
+    return x + reduce_from(gelu(h @ layer["w1"]) @ layer["w2"], mlp_axis)
 
 
 def n_layers_of(layers) -> int:
@@ -200,10 +258,11 @@ def n_layers_of(layers) -> int:
 
 
 def _encoder_scan(layers, x, *, n_heads: int, norm_eps: float,
-                  attention: str, causal: bool, remat: bool):
+                  attention: str, causal: bool, remat: bool,
+                  plan: EncoderPlan):
     block = remat_wrap(functools.partial(
         _encoder_block, n_heads=n_heads, norm_eps=norm_eps,
-        attention=attention, causal=causal), remat)
+        attention=attention, causal=causal, plan=plan), remat)
     for i in range(n_layers_of(layers)):
         x = block(_layer(layers, i), x)
     return x
@@ -243,33 +302,49 @@ def vit_init(seed: int, config: ViTConfig, device: DeviceLike = None
     return params
 
 
-def vit_forward(params: Params, images, config: ViTConfig,
-                return_pooled: bool = False):
-    """images [B, H, W, C] -> logits [B, n_classes] f32 (with a head)
-    or the pooled representation [B, dim]; ``return_pooled`` forces the
-    pooled rep even with a head (the CLIP tower)."""
+def _vit_forward(params: Params, images, config: ViTConfig,
+                 return_pooled: bool, plan: EncoderPlan):
     c = config
-    x = patchify(images.to(c.dtype), c) @ params["patch_embed"]
-    x = x + params["patch_bias"]
+    x = patchify(images.to(c.dtype), c) @ plan.leaf(params, "patch_embed")
+    x = x + plan.leaf(params, "patch_bias")
     if c.pool == "cls":
-        cls = params["cls_token"].expand(x.shape[0], 1, c.dim)
+        cls = plan.leaf(params, "cls_token").expand(x.shape[0], 1, c.dim)
         x = torch.cat([cls, x], dim=1)
-    x = x + params["pos_embed"]
+    x = x + plan.leaf(params, "pos_embed")
     x = _encoder_scan(params["layers"], x, n_heads=c.n_heads,
                       norm_eps=c.norm_eps, attention=c.attention,
-                      causal=False, remat=c.remat)
-    x = layer_norm(x, params["final_ln_scale"], params["final_ln_bias"],
-                   c.norm_eps)
+                      causal=False, remat=c.remat, plan=plan)
+    x = layer_norm(x, plan.leaf(params, "final_ln_scale"),
+                   plan.leaf(params, "final_ln_bias"), c.norm_eps)
     pooled = x[:, 0] if c.pool == "cls" else x.mean(1)
     if c.n_classes and not return_pooled:
-        return (pooled @ params["head_w"] + params["head_b"]).float()
+        return (pooled @ plan.leaf(params, "head_w")
+                + plan.leaf(params, "head_b")).float()
     return pooled
 
 
-def vit_loss(params: Params, images, labels, config: ViTConfig):
-    """Softmax cross-entropy for supervised classification."""
-    logp = torch.log_softmax(vit_forward(params, images, config), dim=-1)
-    return -logp.gather(-1, labels[:, None].long()).mean()
+def vit_forward(params: Params, images, config: ViTConfig,
+                return_pooled: bool = False, *, mesh=None,
+                rules: Optional[ShardingRules] = None):
+    """images [B, H, W, C] -> logits [B, n_classes] f32 (with a head)
+    or the pooled representation [B, dim]; ``return_pooled`` forces the
+    pooled rep even with a head (the CLIP tower). With ``mesh`` and
+    ``rules``, ``params`` are this rank's local shards and ``images``
+    its rows, and so are the outputs (see the module docstring)."""
+    plan = encoder_plan(params, mesh, rules, config.n_heads, what="ViT")
+    return _vit_forward(params, images, config, return_pooled, plan)
+
+
+def vit_loss(params: Params, images, labels, config: ViTConfig, *,
+             mesh=None, rules: Optional[ShardingRules] = None):
+    """Softmax cross-entropy for supervised classification; with
+    ``mesh`` and ``rules``, the mean over the global batch of which
+    ``images`` and ``labels`` are this rank's rows."""
+    plan = encoder_plan(params, mesh, rules, config.n_heads, what="ViT")
+    logits = _vit_forward(params, images, config, False, plan)
+    logp = torch.log_softmax(logits, dim=-1)
+    return global_mean(-logp.gather(-1, labels[:, None].long()),
+                       plan.batch_axes())
 
 
 # mode -> (layer in-projection, layer out-projection, embedding) specs;
@@ -369,16 +444,17 @@ def _text_init(gen: torch.Generator, c: CLIPTextConfig) -> Params:
     }
 
 
-def _text_forward(params: Params, tokens, c: CLIPTextConfig):
+def _text_forward(params: Params, tokens, c: CLIPTextConfig,
+                  plan: EncoderPlan):
     """Causal text tower -> the rep at the final position (EOS last)."""
     s = tokens.shape[1]
-    x = params["embedding"][tokens].to(c.dtype)
-    x = x + params["pos_embed"][:s]
+    x = plan.leaf(params, "embedding")[tokens].to(c.dtype)
+    x = x + plan.leaf(params, "pos_embed")[:s]
     x = _encoder_scan(params["layers"], x, n_heads=c.n_heads,
                       norm_eps=c.norm_eps, attention=c.attention,
-                      causal=True, remat=c.remat)
-    x = layer_norm(x, params["final_ln_scale"], params["final_ln_bias"],
-                   c.norm_eps)
+                      causal=True, remat=c.remat, plan=plan)
+    x = layer_norm(x, plan.leaf(params, "final_ln_scale"),
+                   plan.leaf(params, "final_ln_bias"), c.norm_eps)
     return x[:, -1]
 
 
@@ -404,22 +480,63 @@ def _unit(emb):
     return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
 
 
-def clip_encode_image(params: Params, images, config: CLIPConfig):
-    rep = vit_forward(params["vision"], images, config.vision,
-                      return_pooled=True)
-    return _unit((rep @ params["proj_v"]).float())
+class _CLIPPlan:
+    """A CLIP forward's plans: one per tower (their paths under
+    ``vision/`` and ``text/``) and one for the projections."""
+
+    def __init__(self, params: Params, config: CLIPConfig, mesh, rules):
+        self.vision = encoder_plan(params["vision"], mesh, rules,
+                                   config.vision.n_heads, "vision/",
+                                   "CLIP's image tower")
+        self.text = encoder_plan(params["text"], mesh, rules,
+                                 config.text.n_heads, "text/",
+                                 "CLIP's text tower")
+        projections = {k: params[k] for k in ("proj_v", "proj_t")}
+        self.top = (Plan() if mesh is None else Plan.for_mesh(
+            mesh, rules, projections, params["proj_v"].device))
 
 
-def clip_encode_text(params: Params, tokens, config: CLIPConfig):
-    rep = _text_forward(params["text"], tokens, config.text)
-    return _unit((rep @ params["proj_t"]).float())
+def _encode_image(params, images, config: CLIPConfig, plan: _CLIPPlan):
+    rep = _vit_forward(params["vision"], images, config.vision, True,
+                       plan.vision)
+    return _unit((rep @ plan.top.leaf(params, "proj_v")).float())
 
 
-def clip_loss(params: Params, images, tokens, config: CLIPConfig):
+def _encode_text(params, tokens, config: CLIPConfig, plan: _CLIPPlan):
+    rep = _text_forward(params["text"], tokens, config.text, plan.text)
+    return _unit((rep @ plan.top.leaf(params, "proj_t")).float())
+
+
+def clip_encode_image(params: Params, images, config: CLIPConfig, *,
+                      mesh=None, rules: Optional[ShardingRules] = None):
+    """Unit image embeddings [B, embed_dim] f32; with ``mesh`` and
+    ``rules``, of this rank's rows ``images`` from its local shards."""
+    return _encode_image(params, images, config,
+                         _CLIPPlan(params, config, mesh, rules))
+
+
+def clip_encode_text(params: Params, tokens, config: CLIPConfig, *,
+                     mesh=None, rules: Optional[ShardingRules] = None):
+    """Unit text embeddings [B, embed_dim] f32; with ``mesh`` and
+    ``rules``, of this rank's rows ``tokens`` from its local shards."""
+    return _encode_text(params, tokens, config,
+                        _CLIPPlan(params, config, mesh, rules))
+
+
+def clip_loss(params: Params, images, tokens, config: CLIPConfig, *,
+              mesh=None, rules: Optional[ShardingRules] = None):
     """Symmetric InfoNCE over in-batch negatives (the CLIP objective),
-    the temperature's log clipped to [-5, 4.6052]."""
-    img = clip_encode_image(params, images, config)
-    txt = clip_encode_text(params, tokens, config)
+    the temperature's log clipped to [-5, 4.6052]. With ``mesh`` and
+    ``rules``, ``images`` and ``tokens`` are this rank's rows: both
+    towers' embeddings are gathered over the batch axes for the global
+    [B, B] logits (``gather_rows``, whose backward hands each rank its
+    rows' gradient), so the loss is the global one on every rank."""
+    plan = _CLIPPlan(params, config, mesh, rules)
+    axes = plan.top.batch_axes()
+    img = gather_rows(_encode_image(params, images, config, plan), axes)
+    txt = gather_rows(_encode_text(params, tokens, config, plan), axes)
+    # used whole after the gather: its gradient is the global one on every
+    # rank already, so it takes no sum over the batch axes
     scale = torch.exp(torch.clamp(params["logit_scale"], -5.0, 4.6052))
     logits = scale * (img @ txt.T)  # [B, B]
     labels = torch.arange(logits.shape[0], device=logits.device)[:, None]

@@ -1,9 +1,10 @@
 """Parallel layers of the port: meshes and sharding rules (``mesh.py``,
 ``sharding.py``, with the collectives a sharded forward issues in
 ``_sharded.py``), the mixture-of-experts layer with expert parallelism
-(``moe.py``), ring and Ulysses attention (``ring_attention.py``) and
-the GPipe pipeline (``pipeline.py``) over ``torch.distributed``
-groups."""
+(``moe.py``), ring and Ulysses attention (``ring_attention.py``), the
+GPipe pipeline (``pipeline.py``) and the gradient-sync collectives
+(``collective.py``: the quantized ring and in-graph reductions) over
+``torch.distributed`` groups."""
 
 from ray_tpu_torch.parallel.mesh import (
     AXIS_ORDER, MeshSpec, initialize_distributed, make_mesh, mesh_axis_size,

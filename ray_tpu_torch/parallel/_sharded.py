@@ -22,7 +22,15 @@ a sharded ``jit``:
 - **The token mean.** :func:`global_value` raises a rank's share of a
   sum to the sum over the token axes, with the other ranks' shares as a
   constant: every rank returns the global loss and backpropagates its
-  own share.
+  own share (:func:`global_mean`).
+- **The gathered batch.** :func:`gather_rows` all-gathers a tensor over
+  the batch axes for a loss that needs every row (CLIP's [B, B]
+  logits); its backward takes this rank's rows, since every rank
+  computes the same global loss from the gathered tensor.
+
+:class:`Plan` holds what a family's forward needs from a mesh: the
+layout, every leaf's spec and the leaves its layers use sharded
+(Megatron's column/row pairs on ``model``, which each family names).
 
 Every collective runs over one mesh axis; a sum over several axes is a
 sum over each in turn. An axis of size 1 is skipped, so a world-1 mesh
@@ -33,15 +41,16 @@ rank, and so is the graph that autograd walks backwards.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.parallel import _group
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER
-from ray_tpu_torch.parallel.sharding import P, spec_axes
+from ray_tpu_torch.parallel.sharding import P, ShardingRules, spec_axes
 
 # The axes the tokens are split over: the batch on data and fsdp (data
 # major), the sequence on seq. Every other axis holds a replica of each
@@ -242,3 +251,145 @@ def global_value(share: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
     if not axes:
         return share
     return share + (all_reduce(share, axes) - share).detach()
+
+
+def global_mean(x: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
+    """The mean of ``x`` over the rows of every rank of ``axes`` (each
+    rank holding as many): ``x.mean()`` without axes, else this rank's
+    share of the global mean raised to the global mean itself
+    (:func:`global_value`)."""
+    if not axes:
+        return x.mean()
+    n = x.numel() * math.prod(a.size for a in axes)
+    return global_value(x.sum() / n, axes)
+
+
+def local_rows(x: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
+    """This rank's rows (dim 0) of a batch split over the batch
+    ``axes`` (data major, as :func:`gather_rows` joins them)."""
+    for axis in axes:
+        x = _chunk(x, 0, axis)
+    return x
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes: Sequence[Axis]):
+        ctx.axes = axes
+        for axis in reversed(axes):  # the minor axis first
+            x = all_gather(x, 0, axis)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return local_rows(grad, ctx.axes).contiguous(), None
+
+
+def gather_rows(x: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
+    """Every rank's rows of ``x`` (dim 0) over the batch ``axes``,
+    data major. The backward takes this rank's rows of the gradient (a
+    slice, not a reduce-scatter): every rank computes the same global
+    loss from the gathered tensor, so each holds the whole gradient.
+    ``x`` itself without axes."""
+    return _GatherRows.apply(x, tuple(axes)) if axes else x
+
+
+# ---------------------------------------------------------------------------
+# a forward's plan on a mesh
+# ---------------------------------------------------------------------------
+
+REPLICATED = ShardingRules(rules=[(r".*", P())])
+
+# A Megatron pair: (column-parallel leaves, row-parallel leaves) of a layer
+Pair = Tuple[Tuple[str, ...], Tuple[str, ...]]
+
+
+def _layer_ndims(layers) -> Dict[str, int]:
+    """The dimensions of one layer's leaves, of a stacked (dict of
+    [L, ...]) or unstacked (list of dicts) layer tree."""
+    if isinstance(layers, (list, tuple)):
+        return {name: t.ndim for name, t in layers[0].items()}
+    return {name: t.ndim - 1 for name, t in layers.items()}
+
+
+def leaf_specs(params: Dict[str, Any], rules: ShardingRules,
+               prefix: str = "") -> Dict[str, P]:
+    """The spec of each top-level leaf of ``params`` and (without its
+    layer axis) of each layer leaf, by the paths of the stacked tree
+    (``<prefix>layers/<name>``), which the rules are written for."""
+    specs = {}
+    for name, t in params.items():
+        if name == "layers":
+            continue
+        if isinstance(t, torch.Tensor):
+            specs[name] = rules.spec_for(prefix + name, t.ndim)
+    for name, ndim in _layer_ndims(params.get("layers", {})).items():
+        path = f"{prefix}layers/{name}"
+        spec = rules.spec_for(path, ndim + 1)
+        if spec and spec[0] is not None:
+            raise ValueError(f"{path}: {spec} splits the layer axis")
+        if name in specs:
+            raise ValueError(f"{path}: a top-level leaf has its name")
+        specs[name] = P(*spec[1:])
+    return specs
+
+
+class Plan:
+    """How one forward uses its parameters: on a mesh, the layout, every
+    leaf's spec (:func:`leaf_specs`) and the leaves the layers use
+    sharded (``local``: name -> axes); without one, every leaf as it
+    is."""
+
+    def __init__(self, layout: Optional[Layout] = None,
+                 specs: Optional[Dict[str, P]] = None):
+        self.layout, self.specs = layout, specs
+        self.local: Dict[str, tuple] = {}
+
+    @classmethod
+    def for_mesh(cls, mesh, rules: Optional[ShardingRules],
+                 params: Dict[str, Any], device: torch.device,
+                 prefix: str = "", **kw) -> "Plan":
+        """The plan of ``params`` (this rank's shards) under ``rules``
+        (None: every leaf replicated) on ``mesh``."""
+        layout = Layout.from_mesh(mesh, device)
+        layout.check()
+        return cls(layout, leaf_specs(params, rules or REPLICATED, prefix),
+                   **kw)
+
+    def on(self, name: str, dim: int, axis: str) -> bool:
+        spec = self.specs.get(name, P())
+        return len(spec) > dim and spec[dim] == axis
+
+    def pair_on(self, pair: Pair, axis: str) -> bool:
+        column, row = pair
+        return (all(self.on(n, 1, axis) for n in column)
+                and all(self.on(n, 0, axis) for n in row))
+
+    def split_pair(self, pair: Pair, axis: str = "model") -> Optional[Axis]:
+        """``axis`` when it has more than one rank and ``pair``'s specs
+        split the column leaves' outputs and the row leaves' inputs over
+        it: the layers then use those leaves sharded on it (Megatron's
+        pair). None otherwise, and the leaves are gathered on use."""
+        split = None if self.specs is None else self.layout.split(axis)
+        if split is None or not self.pair_on(pair, axis):
+            return None
+        self.local.update(dict.fromkeys(sum(pair, ()), (axis,)))
+        return split
+
+    def leaf(self, params: Dict[str, Any], name: str):
+        if self.specs is None:
+            return params[name]
+        return use(params[name], self.specs[name], self.layout)
+
+    def layer(self, layer_params: Dict[str, Any]) -> Dict[str, Any]:
+        if self.specs is None:
+            return layer_params
+        return {name: use(t, self.specs[name], self.layout,
+                          self.local.get(name, ()))
+                for name, t in layer_params.items()}
+
+    def token_axes(self) -> Tuple[Axis, ...]:
+        return () if self.layout is None else self.layout.token_axes()
+
+    def batch_axes(self) -> Tuple[Axis, ...]:
+        return () if self.layout is None else self.layout.batch_axes()

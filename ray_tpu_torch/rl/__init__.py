@@ -9,7 +9,8 @@ multi-agent PPO over parallel (``MultiAgentEnvRunner``) and turn-based
 (``TurnBasedEnvRunner``) envs. What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md Queue 1 item: remote env
 runners, APPO's and IMPALA's asynchronous loops and
-``OfflineData.from_dataset`` (item 9), several learners (item 4).
+``OfflineData.from_dataset`` (item 9), several learner actors (item
+4.3).
 """
 
 from ray_tpu_torch.rl import spaces

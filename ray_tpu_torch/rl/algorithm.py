@@ -17,8 +17,8 @@ algorithm with ``supports_multi_agent`` (PPO) takes it, any other raises
 Not ported yet; each raises ``NotImplementedError`` naming its
 ROADMAP.md Queue 1 item instead of running in part: remote env runners
 (``num_env_runners > 0``) and the connector-state sync between them
-(item 9, the runtime). Several learners raise in ``LearnerGroup``
-(item 4).
+(item 9, the runtime). Several learner actors raise in
+``LearnerGroup`` (item 4.3).
 """
 
 from __future__ import annotations

@@ -14,17 +14,20 @@ Two sampling paths, selected automatically:
 With ``config.multi_agent(...)`` one local ``MultiAgentEnvRunner`` (or
 ``TurnBasedEnvRunner`` for an env with ``turn_based = True``) samples
 the envs, and each module trains its own ``PPOLearner``. Remote env
-runners are ROADMAP.md Queue 1 item 9, several learners item 4.
+runners are ROADMAP.md Queue 1 item 9, several learner actors item 4.3;
+one ``PPOLearner(mesh=...)`` trains data-parallel (rl/learner.py).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
+from ray_tpu_torch.parallel._sharded import all_reduce
 from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rl.env_runner import SingleAgentEnvRunner, TensorEnvRunner
 from ray_tpu_torch.rl.learner import (
@@ -51,17 +54,30 @@ class PPOConfig(AlgorithmConfig):
         self.grad_clip = 0.5
 
 
+def normalize_advantages(adv: torch.Tensor, axes=()) -> torch.Tensor:
+    """(adv - mean) / (population std + 1e-8), as ``jnp.std`` computes
+    it; with ``axes`` (a sharded learner's data axis) the mean and the
+    std are the global batch's, of which ``adv`` is this rank's rows, as
+    GSPMD computes them for the reference's learner over a mesh."""
+    if not axes:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    n = adv.numel() * math.prod(a.size for a in axes)
+    mean = all_reduce(adv.sum(), axes) / n
+    var = all_reduce(((adv - mean) ** 2).sum(), axes) / n
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
 def ppo_loss(module, batch, *, clip_param: float, vf_clip_param: float,
-             vf_loss_coeff: float, entropy_coeff: float):
+             vf_loss_coeff: float, entropy_coeff: float, axes=()):
     """The clipped surrogate, the clipped value loss and the entropy
     bonus (ppo.py:52-81; Anakin's fused step shares it). Returns
     ``(total, metrics, logp)``. The advantages are normalised with the
-    population std, as ``jnp.std`` computes it."""
+    population std, as ``jnp.std`` computes it, over the global batch
+    when ``axes`` split it (:func:`normalize_advantages`)."""
     dist, values = module(batch[OBS])
     logp = dist.log_prob(batch[ACTIONS])
     ratio = torch.exp(logp - batch[LOGP])
-    adv = batch[ADVANTAGES]
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    adv = normalize_advantages(batch[ADVANTAGES], axes)
     surrogate = torch.minimum(
         adv * ratio, adv * torch.clamp(ratio, 1 - clip_param, 1 + clip_param))
     policy_loss = -surrogate.mean()
@@ -93,7 +109,7 @@ class PPOLearner(Learner):
             module, batch, clip_param=self.clip_param,
             vf_clip_param=self.vf_clip_param,
             vf_loss_coeff=self.vf_loss_coeff,
-            entropy_coeff=self.entropy_coeff)
+            entropy_coeff=self.entropy_coeff, axes=self.batch_axes)
         metrics["mean_kl"] = (batch[LOGP] - logp).mean()
         return total, metrics
 
@@ -144,7 +160,7 @@ class PPO(Algorithm):
             raise NotImplementedError(
                 "multi-agent PPO runs one local env runner and per-module "
                 "local learners; several learners are ROADMAP.md Queue 1 "
-                "item 4, and env_to_module connectors on the multi-agent "
+                "item 4.3, and env_to_module connectors on the multi-agent "
                 "runner wait for the remote runners of item 9")
         env = config.make_multi_agent_env()
         try:

@@ -1,5 +1,5 @@
 """Podracer RL architectures of the port: :class:`Anakin`, the fused
-rollout -> GAE -> PPO update on one device; Sebulba's fragment replay
+rollout -> GAE -> PPO update on one device or over shards in lockstep; Sebulba's fragment replay
 (``FragmentReplay``) and its int8 weight push (``quantize_params``,
 ``dequantize_params``). Sebulba itself, its ``ReplayActor`` and its
 ``PolicyInference`` deployment come with the runtime copy, ROADMAP.md
@@ -8,6 +8,7 @@ Queue 1 item 9."""
 from ray_tpu_torch.rl.podracer.anakin import (
     Anakin,
     AnakinConfig,
+    build_lockstep,
     build_step,
     init_shard,
     make_optimizer,
@@ -19,5 +20,5 @@ from ray_tpu_torch.rl.podracer.inference import (
 from ray_tpu_torch.rl.podracer.replay import DEFAULT_CAPACITY, FragmentReplay
 
 __all__ = ["Anakin", "AnakinConfig", "DEFAULT_CAPACITY", "FragmentReplay",
-           "build_step", "dequantize_params", "init_shard",
+           "build_lockstep", "build_step", "dequantize_params", "init_shard",
            "make_optimizer", "quantize_params"]

@@ -24,12 +24,16 @@ import torch.distributed as dist
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.dit import (
-    DiTConfig, dit_init, dit_loss, draw_dit_noise)
+    DiTConfig, dit_init, dit_loss, dit_sharding_rules, draw_dit_noise)
 from ray_tpu_torch.models.llama import (
     SEQ_PARALLEL, LlamaConfig, Params, llama_init, llama_loss,
     unstack_layers)
-from ray_tpu_torch.models.vit import ViTConfig, vit_init, vit_loss
+from ray_tpu_torch.models.vit import (
+    CLIPConfig, ViTConfig, clip_init, clip_loss, clip_sharding_rules,
+    vit_init, vit_loss, vit_sharding_rules)
 from ray_tpu_torch.parallel import _group
+from ray_tpu_torch.parallel._sharded import Layout, local_rows
+from ray_tpu_torch.parallel.sharding import shard_pytree
 
 H100_BF16_DENSE_FLOPS = 989e12
 BATCH, SEQ, STEPS, CE_CHUNK = 1, 2048, 3, 1024
@@ -75,7 +79,8 @@ def make_step(params: Params, loss_fn, lr: float = 3e-4,
     over ``parameters(params)``: ``optimizer``, or a new
     :func:`make_adamw`. Keep the layers unstacked (``unstack_layers``).
     ``step.optimizer`` is that AdamW, so that a checkpoint reaches its
-    ``state_dict`` and ``load_state_dict``."""
+    ``state_dict`` and ``load_state_dict``; ``step.loss_fn`` is
+    ``loss_fn``."""
     leaves = parameters(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -92,6 +97,7 @@ def make_step(params: Params, loss_fn, lr: float = 3e-4,
         return loss.detach()
 
     step.optimizer = opt
+    step.loss_fn = loss_fn
     return step
 
 
@@ -133,44 +139,111 @@ def setup(cfg: LlamaConfig, batch: int, seq: int, device: DeviceLike = None):
     return params, make_train_step(cfg, params), tokens, targets
 
 
-# images (ViT-B/16) or latents (DiT-B/2, DiT-XL/2) per step of
+# images (ViT-B/16, CLIP) or latents (DiT-B/2, DiT-XL/2) per step of
 # setup_vision
-VISION_BATCH = {"vit": 64, "dit": 32, "dit_xl": 32}
+VISION_BATCH = {"vit": 64, "clip": 32, "dit": 32, "dit_xl": 32}
+VISION_RULES = {"vit": vit_sharding_rules, "clip": clip_sharding_rules,
+                "dit": dit_sharding_rules, "dit_xl": dit_sharding_rules}
 
 
-def setup_vision(model: str, device: DeviceLike = None):
+def _local(stacked: Params, mesh, rules, towers=()) -> Params:
+    """A stacked tree cut to this rank's shards (with ``mesh``), its
+    layers unstacked (those of each tower in ``towers``)."""
+    if mesh is not None:
+        stacked = shard_pytree(stacked, mesh, rules)
+    if not towers:
+        return unstack_layers(stacked)
+    return {**stacked, **{t: unstack_layers(stacked[t]) for t in towers}}
+
+
+def random_adaln(params: Params, std: float, seed: int = 2) -> Params:
+    """DiT's stacked ``params`` with the adaLN-Zero leaves (zero at init,
+    where the blocks are the identity and most grads zero, so that a
+    comparison of grads proves little) drawn N(0, std^2) by a generator
+    seeded ``seed`` on their device."""
+    dev = params["final_w"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(t):
+        return (torch.randn(t.shape, generator=gen, device=dev)
+                * std).to(t.dtype)
+
+    layers = dict(params["layers"], mod_w=draw(params["layers"]["mod_w"]),
+                  mod_b=draw(params["layers"]["mod_b"]))
+    return dict(params, layers=layers, **{
+        k: draw(params[k]) for k in ("final_mod_w", "final_mod_b",
+                                     "final_w")})
+
+
+def setup_vision(model: str, device: DeviceLike = None, *, mesh=None,
+                 mode: str = "fsdp_tp", adaln_std: float = 0.0):
     """A vision model's training state -> ``(cfg, params, step)``:
-    ViT-B/16 (224^2, class token, 1000 classes), DiT-B/2 or DiT-XL/2
-    (``"dit_xl"``: head_dim 72, 28 layers) at 1000 classes on 32 x 32 x 4
-    latents (256^2 images), bf16 with remat, at
+    ViT-B/16 (224^2, class token, 1000 classes), CLIP (``"clip"``: the
+    ViT-B/16 image tower and the 512-wide causal text tower at S 77),
+    DiT-B/2 or DiT-XL/2 (``"dit_xl"``: head_dim 72, 28 layers) at 1000
+    classes on 32 x 32 x 4 latents (256^2 images), bf16 with remat, at
     ``VISION_BATCH[model]``; weights from seed 0 with the layers
     unstacked, one fixed batch (and DiT's draws: t, eps, label drop) from
-    seed 1, and ``step() -> loss``, the :func:`make_step` over it."""
+    seed 1, and ``step() -> loss``, the :func:`make_step` over it, with
+    that batch's tensors in ``step.batch``. With ``mesh``, the parameters
+    are this rank's shards under the model's rules for ``mode`` and the
+    batch its rows; the loss is the global one, and AdamW steps each
+    shard on its own. ``adaln_std`` > 0 draws DiT's adaLN-Zero leaves
+    with :func:`random_adaln` before they are sharded."""
+    if model not in VISION_RULES:
+        raise ValueError(f"unknown vision model {model!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     batch = VISION_BATCH[model]
+    rules = None if mesh is None else VISION_RULES[model](mode)
+    axes = () if mesh is None else Layout.from_mesh(mesh, dev).batch_axes()
+    kw = {} if mesh is None else dict(mesh=mesh, rules=rules)
+
+    def rows(x):
+        return local_rows(x, axes)
+
+    def state(cfg, params, loss_fn, **tensors):
+        step = make_step(params, loss_fn)
+        step.batch = tensors
+        return cfg, params, step
+
     labels_of = functools.partial(torch.randint, 0, 1000, (batch,),
                                   generator=gen, device=dev)
-    if model == "vit":
-        cfg = ViTConfig.base(n_classes=1000, pool="cls")
-        params = unstack_layers(vit_init(0, cfg, dev))
-        images = torch.randn((batch, cfg.image_size, cfg.image_size,
-                              cfg.channels), generator=gen, device=dev)
-        labels = labels_of()
-        return cfg, params, make_step(
-            params, lambda: vit_loss(params, images, labels, cfg))
-    if model not in ("dit", "dit_xl"):
-        raise ValueError(f"unknown vision model {model!r}")
+    if model in ("vit", "clip"):
+        cfg = (ViTConfig.base(n_classes=1000, pool="cls") if model == "vit"
+               else CLIPConfig())
+        v = cfg if model == "vit" else cfg.vision
+        params = (_local(vit_init(0, cfg, dev), mesh, rules)
+                  if model == "vit" else
+                  _local(clip_init(0, cfg, dev), mesh, rules,
+                         ("vision", "text")))
+        images = rows(torch.randn((batch, v.image_size, v.image_size,
+                                   v.channels), generator=gen, device=dev))
+        if model == "vit":
+            labels = rows(labels_of())
+            return state(cfg, params, lambda: vit_loss(
+                params, images, labels, cfg, **kw), images=images,
+                labels=labels)
+        tokens = rows(torch.randint(0, cfg.text.vocab_size,
+                                    (batch, cfg.text.max_seq_len),
+                                    generator=gen, device=dev))
+        return state(cfg, params, lambda: clip_loss(
+            params, images, tokens, cfg, **kw), images=images, tokens=tokens)
     cfg = (DiTConfig.b_2 if model == "dit" else DiTConfig.xl_2)(
         n_classes=1000)
-    params = unstack_layers(dit_init(0, cfg, dev))
+    params = dit_init(0, cfg, dev)
+    if adaln_std:
+        params = random_adaln(params, adaln_std)
+    params = _local(params, mesh, rules)
     shape = (batch, cfg.input_size, cfg.input_size, cfg.channels)
-    x0 = torch.randn(shape, generator=gen, device=dev)
-    labels = labels_of()
-    noise = draw_dit_noise(gen, shape, dev)
-    return cfg, params, make_step(
-        params, lambda: dit_loss(params, noise, x0, cfg, labels))
+    x0 = rows(torch.randn(shape, generator=gen, device=dev))
+    labels = rows(labels_of())
+    noise = draw_dit_noise(gen, shape, dev)  # the global batch's draws
+    return state(cfg, params, lambda: dit_loss(
+        params, noise, x0, cfg, labels, **kw), x0=x0, labels=labels,
+        noise=noise)
 
 
 def timed_steps(step, steps: int, *args):

@@ -265,7 +265,10 @@ def test_unported_paths_refuse(configure, match):
 
 
 def test_learner_mesh_refuses():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    """Learner(mesh=) runs data-parallel now
+    (tests/test_torch_sharded_rl.py); what is neither a mesh nor a
+    process group still refuses."""
+    with pytest.raises(ValueError, match="DeviceMesh or a process group"):
         Learner(_port_spec((8,)), mesh=object(), device="cpu")
 
 
