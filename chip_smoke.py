@@ -88,7 +88,17 @@ weights, batches and draws, every sampled index equal
 CartPole: ms per train step, launches, idle share, the parts of a step,
 env-steps/s (``rl_dreamer``), and multi-agent PPO on rock-paper-scissors
 against a frozen opponent and on tic-tac-toe self-play, gated on the
-reference tests' learning bars (``rl_multi_agent``), (10) the vision,
+reference tests' learning bars (``rl_multi_agent``), RL on the port's
+runtime (``rl_remote``): PPO on CartPole through 2 remote CPU env
+runners with its learner on the card, each runner's first fragment bit
+for bit a local CPU runner's from the same seed and weights; a
+``LearnerGroup`` of 2 learner actors on half the card each, 3 updates,
+the ranks bit-equal and within 1e-5 of the same steps in this process;
+APPO and IMPALA's asynchronous loops, 4 iterations each; and Sebulba
+(``rl_sebulba``): the bandit scenario with its learner actor and one
+inference replica sharing the card, 12 updates, weight pushes,
+staleness, replay depth, learning and the five ``rl`` flight-recorder
+spans checked, (10) the vision,
 diffusion and MoE models: ViT-B/16 training at batch 64
 (``vision_train``), a CLIP step with its causal text tower
 (``clip_step``), DiT-B/2 training and DDIM sampling with guidance
@@ -4067,6 +4077,315 @@ def rl_multi_agent(dev, card):
                                           for r in trows]))
 
 
+# rl_remote: PPO over remote runners, the learner group, APPO / IMPALA
+REMOTE_ITERS, GROUP_UPDATES, ASYNC_ITERS = 3, 3, 4
+REMOTE_RUNNERS, REMOTE_ENVS, REMOTE_FRAGMENT = 2, 8, 64
+GROUP_ROWS, GROUP_ATOL = 256, 1e-5
+SEBULBA_UPDATES = 12
+
+
+def _runtime(**system_config):
+    """A fresh port runtime on this machine (it counts the card)."""
+    import ray_tpu_torch
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    return ray_tpu_torch.init(system_config=system_config or None)
+
+
+def _stop_runtime():
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    if ray_tpu_torch.is_initialized():
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+
+def _flat_leaves(tree):
+    import numpy as np
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flat_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def group_batch(n, seed):
+    """A PPO minibatch of ``n`` CartPole-shaped rows from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(2, size=n).astype(np.int32),
+        "action_logp": np.full(n, -0.69, dtype=np.float32),
+        "vf_preds": rng.normal(size=n).astype(np.float32),
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "value_targets": rng.normal(size=n).astype(np.float32),
+    }
+
+
+def ddp_in_process(learner, batches, n):
+    """The learner group's arithmetic in this process: per batch, the
+    gradients of each wraparound shard's loss, their mean, the clip and
+    Adam's step."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rl.learner import batch_to_device, clip_by_global_norm_
+    params = list(learner.module.parameters())
+    for batch in batches:
+        size = len(batch["obs"])
+        idx = np.arange(max(size, n)) % size
+        total = [torch.zeros_like(p) for p in params]
+        for chunk in np.array_split(idx, n):
+            shard = batch_to_device({k: v[chunk] for k, v in batch.items()},
+                                    learner.device)
+            loss, _ = learner.loss(learner.module, shard)
+            total = [t + g for t, g in
+                     zip(total, torch.autograd.grad(loss, params))]
+        learner.optimizer.zero_grad(set_to_none=True)
+        for p, t in zip(params, total):
+            p.grad = t / n
+        clip_by_global_norm_([p.grad for p in params], learner.grad_clip)
+        learner.optimizer.step()
+
+
+def _timed_train(algo, n):
+    rows, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        rows.append(algo.train())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return rows, ms
+
+
+def rl_remote(dev, card):
+    """RL's remote parts on the port's runtime. PPO on CartPole (Python
+    env) through 2 remote CPU runners, the learner on the card, each
+    runner's first fragment bit for bit a local CPU runner's; a learner
+    group of 2 actors on half the card each against the same steps in
+    this process; APPO and IMPALA for 4 iterations each."""
+    import numpy as np
+    import ray_tpu_torch
+    from ray_tpu_torch.rl import (APPOConfig, IMPALAConfig, PPOConfig,
+                                  RLModuleSpec)
+    from ray_tpu_torch.rl.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rl.env import CartPole
+    from ray_tpu_torch.rl.env_runner import SingleAgentEnvRunner
+    from ray_tpu_torch.rl.learner import LearnerGroup
+    from ray_tpu_torch.rl.spaces import Box, Discrete
+    _runtime()
+    out = dict(card=card)
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+        check(gpus >= 1, f"rl_remote: the runtime counts {gpus} GPUs")
+        # PPO: 2 remote runners, the learner here on the card
+        t0 = time.perf_counter()
+        algo = (PPOConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=REMOTE_RUNNERS,
+                             num_envs_per_env_runner=REMOTE_ENVS,
+                             rollout_fragment_length=REMOTE_FRAGMENT,
+                             prefer_tensor_env=False)
+                .training(num_epochs=2, minibatch_size=256)
+                .debugging(seed=SEED).build_algo(device=dev))
+        out["ppo_start_s"] = time.perf_counter() - t0
+        try:
+            check(algo.learner_group.local_learner.device == dev,
+                  "rl_remote: PPO's learner is not on the card")
+            weights = algo.learner_group.get_weights()
+            for i, runner in enumerate(algo.runners):
+                local = SingleAgentEnvRunner(
+                    env_creator=CartPole, module_spec=algo.spec,
+                    num_envs=REMOTE_ENVS, rollout_len=REMOTE_FRAGMENT,
+                    seed=SEED + i, device="cpu")
+                local.set_weights(weights)
+                ray_tpu_torch.get(runner.set_weights.remote(weights))
+                cols, _m, _d = ray_tpu_torch.get(runner.sample.remote())
+                want = local.sample()
+                for key in want:
+                    check(np.array_equal(cols[key], want[key]),
+                          f"rl_remote: runner {i}'s {key} differs from a "
+                          "local CPU runner's")
+            rows, ms = _timed_train(algo, REMOTE_ITERS)
+            for r in rows:
+                check(r["num_env_steps_sampled"]
+                      == REMOTE_RUNNERS * REMOTE_ENVS * REMOTE_FRAGMENT,
+                      f"rl_remote: sampled {r['num_env_steps_sampled']}")
+                check(math.isfinite(r["total_loss"]),
+                      f"rl_remote: PPO loss {r['total_loss']}")
+            out["ppo"] = dict(
+                train_ms=ms, env_steps_per_sec=[r["env_steps_per_sec"]
+                                                for r in rows],
+                return_curve=[r["episode_return_mean"] for r in rows])
+        finally:
+            algo.stop()
+
+        # the learner group: 2 actors on half the card each
+        spec = RLModuleSpec(Box(-np.full(4, 2.0, np.float32),
+                                np.full(4, 2.0, np.float32)), Discrete(2),
+                            (64, 64))
+        kw = dict(lr=1e-3, grad_clip=0.5, seed=SEED)
+        t0 = time.perf_counter()
+        group = LearnerGroup(PPOLearner, num_learners=2, module_spec=spec,
+                             device=dev, **kw)
+        start_s = time.perf_counter() - t0
+        try:
+            local = PPOLearner(spec, device=dev, **kw)
+            group.set_state({"params": {k: v.cpu() for k, v in
+                                        local.module.state_dict().items()},
+                             "opt_state": local.optimizer.state_dict()})
+            batches = [group_batch(GROUP_ROWS, s)
+                       for s in range(GROUP_UPDATES)]
+            update_ms = []
+            for b in batches:
+                t0 = time.perf_counter()
+                group.update(b)
+                update_ms.append((time.perf_counter() - t0) * 1e3)
+            ddp_in_process(local, batches, 2)
+            w0, w1 = ray_tpu_torch.get(
+                [a.get_weights.remote() for a in group._actors])
+            want = local.get_weights()
+            err = 0.0
+            for a, b, c in zip(_flat_leaves(w0), _flat_leaves(w1),
+                               _flat_leaves(want)):
+                check(np.array_equal(a, b),
+                      "rl_remote: the learner actors' weights differ")
+                err = max(err, float(np.abs(a - c).max()))
+            check(err <= GROUP_ATOL,
+                  f"rl_remote: learner group vs this process {err}")
+        finally:
+            group.shutdown()
+        out["learner_group"] = dict(
+            actors=2, num_gpus_each=0.5, start_s=start_s,
+            update_ms=update_ms, rows=GROUP_ROWS, tolerance=GROUP_ATOL,
+            max_abs_err=err)
+
+        # APPO and IMPALA over 2 remote runners, the learner on the card
+        for name, config in (("appo", APPOConfig), ("impala", IMPALAConfig)):
+            t0 = time.perf_counter()
+            algo = (config().environment("CartPole-v1")
+                    .env_runners(num_env_runners=REMOTE_RUNNERS,
+                                 num_envs_per_env_runner=REMOTE_ENVS,
+                                 rollout_fragment_length=REMOTE_FRAGMENT)
+                    .debugging(seed=SEED).build_algo(device=dev))
+            start = time.perf_counter() - t0
+            try:
+                rows, ms = _timed_train(algo, ASYNC_ITERS)
+            finally:
+                algo.stop()
+            last = rows[-1]
+            check(sum(r["fragments_consumed"] for r in rows) >= 1
+                  and last["fragments_in_flight"] >= 1,
+                  f"rl_remote: {name} fragments {last}")
+            check(math.isfinite(last["total_loss"]),
+                  f"rl_remote: {name} loss {last['total_loss']}")
+            if name == "impala":
+                check(math.isfinite(last.get("mean_rho", float("nan"))),
+                      f"rl_remote: IMPALA has no mean_rho {last}")
+            out[name] = dict(
+                start_s=start, train_ms=ms,
+                fragments_consumed=[r["fragments_consumed"] for r in rows],
+                fragments_in_flight=[r["fragments_in_flight"] for r in rows],
+                total_loss=[r["total_loss"] for r in rows],
+                mean_rho=[r.get("mean_rho") for r in rows])
+    finally:
+        _stop_runtime()
+    return out
+
+
+class BanditEnv:
+    """tests/test_podracer.py's bandit: action 0 pays +1, action 1
+    pays -1, 8 steps an episode."""
+
+    _LEN = 8
+
+    def __init__(self):
+        import numpy as np
+        from ray_tpu_torch.rl.spaces import Box, Discrete
+        self.observation_space = Box(-np.ones(3, np.float32),
+                                     np.ones(3, np.float32))
+        self.action_space = Discrete(2)
+        self._t = 0
+
+    def reset(self, *, seed=None):
+        import numpy as np
+        self._t = 0
+        return np.ones(3, np.float32), {}
+
+    def step(self, action):
+        import numpy as np
+        self._t += 1
+        reward = 1.0 if int(action) == 0 else -1.0
+        return (np.ones(3, np.float32), reward, self._t >= self._LEN,
+                False, {})
+
+
+def rl_sebulba(dev, card):
+    """Sebulba's bandit scenario (tests/test_podracer.py:235-295) with
+    its learner actor and one inference replica sharing the card."""
+    import numpy as np
+    from ray_tpu_torch.rl.podracer import Sebulba, SebulbaConfig
+    from ray_tpu_torch.util import flight_recorder as tfr
+    _runtime(flight_recorder_enabled=True, flight_flush_interval_s=0.05)
+    try:
+        cfg = SebulbaConfig(
+            env_creator=BanditEnv, num_actors=2, num_envs_per_actor=2,
+            rollout_len=8, hidden=(16,), lr=3e-2, entropy_coeff=0.0,
+            fragments_per_step=2, weight_push_interval=1,
+            max_staleness=50, seed=SEED)
+        t0 = time.perf_counter()
+        s = Sebulba(cfg, device=dev)
+        start_s = time.perf_counter() - t0
+        try:
+            run = s.train(SEBULBA_UPDATES, step_timeout_s=60.0)
+            want = {"rollout", "infer_batch", "replay_wait", "learn_step",
+                    "weight_push"}
+            deadline = time.monotonic() + 10.0
+            while True:
+                spans = {}
+                for events in tfr.merged_journals().values():
+                    for ev in events:
+                        if ev[3] == "rl":
+                            spans.setdefault(ev[4], []).append(ev[2] / 1e6)
+                if want <= set(spans) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            s.shutdown()
+    finally:
+        _stop_runtime()
+    learner = run["learner"]
+    check(learner["num_updates"] == SEBULBA_UPDATES,
+          f"rl_sebulba: {learner['num_updates']} updates")
+    check(learner["weight_pushes"] >= 2 and learner["push_failures"] == 0,
+          f"rl_sebulba: pushes {learner['weight_pushes']}, failures "
+          f"{learner['push_failures']}")
+    for actor_id, versions in run["versions_by_actor"].items():
+        check(versions == sorted(versions),
+              f"rl_sebulba: actor {actor_id}'s versions went backwards")
+    check(run["replay"]["depth"] <= cfg.replay_capacity,
+          f"rl_sebulba: replay depth {run['replay']}")
+    check(learner["version_lag_max"] <= cfg.max_staleness,
+          f"rl_sebulba: version lag {learner['version_lag_max']}")
+    returns = run["episode_returns"]
+    third = max(len(returns) // 3, 1)
+    first, last = np.mean(returns[:third]), np.mean(returns[-third:])
+    check(last > first, f"rl_sebulba: returns {first} -> {last}")
+    check(want <= set(spans), f"rl_sebulba: spans {sorted(spans)}")
+    return dict(
+        card=card, start_s=start_s, updates=learner["num_updates"],
+        weight_pushes=learner["weight_pushes"],
+        push_failures=learner["push_failures"],
+        infer_batch_ms=float(np.median(spans["infer_batch"])),
+        weight_push_ms=float(np.median(spans["weight_push"])),
+        learn_step_ms=float(np.median(spans["learn_step"])),
+        first_learn_step_ms=learner["learn_step_ms"][0],
+        env_steps_per_sec=run["env_steps_per_sec"],
+        mean_batch_rows=run["mean_batch_rows"],
+        version_lag_max=learner["version_lag_max"],
+        replay=run["replay"], return_first_third=float(first),
+        return_last_third=float(last), spans={k: len(v) for k, v in
+                                              spans.items()})
+
+
 def run_rl(dev, card):
     """The RL phases; none may launch K1-K5."""
     for name, fn, args in (("rl_vs_cpu", rl_vs_cpu, (dev,)),
@@ -4078,7 +4397,9 @@ def run_rl(dev, card):
                            ("rl_dreamer_vs_cpu", rl_dreamer_vs_cpu,
                             (dev, card)),
                            ("rl_dreamer", rl_dreamer, (dev, card)),
-                           ("rl_multi_agent", rl_multi_agent, (dev, card))):
+                           ("rl_multi_agent", rl_multi_agent, (dev, card)),
+                           ("rl_remote", rl_remote, (dev, card)),
+                           ("rl_sebulba", rl_sebulba, (dev, card))):
         counts = run_phase(name, (), fn, *args)
         check(not any(counts.values()),
               f"{name} launched a kernel of K1-K5: {counts}")

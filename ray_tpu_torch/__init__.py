@@ -30,10 +30,10 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("accelerators", "api", "core", "dag", "data", "devtools",
-               "exceptions", "experimental", "llm", "models", "native",
-               "ops", "parallel", "rl", "runtime_env", "serve", "train",
-               "util")
+_SUBMODULES = ("accelerators", "api", "autoscaler", "core", "dag", "data",
+               "devtools", "exceptions", "experimental", "llm", "models",
+               "native", "ops", "parallel", "rl", "runtime_env", "serve",
+               "train", "util")
 # The runtime's API (ray_tpu/__init__.py's exports), from api.py.
 _API = ("available_resources", "cancel", "cluster_resources",
         "flight_journal", "get", "get_actor", "get_runtime_context",

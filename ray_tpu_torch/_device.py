@@ -14,10 +14,11 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the current CUDA device; a CUDA device without a
-    GPU raises. ``"cpu"`` is honoured as given. A CUDA device comes back
-    with its index, so that devices compare equal."""
+def device_type(device: DeviceLike = None) -> str:
+    """The rule for ``device`` without a CUDA context in this process
+    (an entry point that places actors on the card): ``"cuda"`` for
+    ``None`` or a CUDA device, raising when no GPU is present, else
+    ``"cpu"``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -26,6 +27,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the current CUDA device; a CUDA device without a
+    GPU raises. ``"cpu"`` is honoured as given. A CUDA device comes back
+    with its index, so that devices compare equal."""
+    dev = torch.device("cuda" if device is None else device)
+    device_type(dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

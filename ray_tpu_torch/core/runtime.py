@@ -2165,4 +2165,8 @@ class DriverRuntime:
         self.nodes.clear()
         if self.gcs.store is not None:
             self.gcs.store.close()
+        # the recorder, its flusher and the RTPU_FLIGHT_* variables
+        # init_driver set go back to how the session found them
+        from ray_tpu_torch.util import flight_recorder
+        flight_recorder.shutdown_driver()
         set_runtime(None)

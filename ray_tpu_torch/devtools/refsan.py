@@ -573,10 +573,14 @@ def on_shutdown() -> None:
     ``report()`` calls (the ledger itself is torn down with the
     session)."""
     global _final_findings
+    stop_flusher()
     if LEDGER is None:
         return
     findings = report()
     _final_findings = findings
+    # the session's ledger goes with it: a ledger left on would record
+    # the next session's (or no session's) references under this one
+    disable()
     for f in findings:
         logger.warning("refsan: %s oid=%s holder=%s: %s",
                        f["kind"], f["oid"][:12], f["holder"], f["detail"])

@@ -1,16 +1,16 @@
 """Reinforcement learning of the port (ray_tpu/rl on PyTorch).
 
-Everything on local runners and one device: PPO on a device rollout
-over a batched tensor env (``CartPoleTensor``) or on numpy envs stepped
-on the host through env-to-module connectors, Anakin's fused rollout ->
-GAE -> PPO update (``ray_tpu_torch.rl.podracer``), the IMPALA learner's
-V-trace, DQN, SAC, offline BC/MARWIL, CQL and IQL, DreamerV3, and
-multi-agent PPO over parallel (``MultiAgentEnvRunner``) and turn-based
-(``TurnBasedEnvRunner``) envs. What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item: remote env
-runners, APPO's and IMPALA's asynchronous loops and
-``OfflineData.from_dataset`` (item 9), several learner actors (item
-7's remote parts).
+PPO on a device rollout over a batched tensor env (``CartPoleTensor``)
+or on numpy envs stepped on the host through env-to-module connectors,
+locally or in remote env-runner actors, with one learner or several
+learner actors; APPO and IMPALA (V-trace) over remote env runners;
+Anakin's fused rollout -> GAE -> PPO update and Sebulba's decoupled
+actors, inference server and learner (``ray_tpu_torch.rl.podracer``);
+DQN, SAC, offline BC/MARWIL, CQL and IQL, DreamerV3; and multi-agent
+PPO over parallel (``MultiAgentEnvRunner``) and turn-based
+(``TurnBasedEnvRunner``) envs. Actors run on the port's runtime
+(``ray_tpu_torch.init()``). ``OfflineData.from_dataset`` waits for
+the port of Data and raises ``NotImplementedError``.
 """
 
 from ray_tpu_torch.rl import spaces

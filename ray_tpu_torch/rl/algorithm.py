@@ -14,11 +14,12 @@ configures multi-agent training (``rl/multi_agent.py``); only an
 algorithm with ``supports_multi_agent`` (PPO) takes it, any other raises
 ``ValueError`` when built.
 
-Not ported yet; each raises ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item instead of running in part: remote env runners
-(``num_env_runners > 0``) and the connector-state sync between them
-(item 9, the runtime). Several learner actors raise in
-``LearnerGroup`` (item 7's remote parts).
+``num_env_runners`` and ``num_learners`` start actors on the port's
+runtime (``ray_tpu_torch.init()`` first): PPO, APPO and IMPALA sample
+through remote env runners, and PPO trains on several learner actors
+(``rl/learner.py``). As in the reference, DQN, SAC, DreamerV3 and the
+offline algorithms sample locally whatever ``num_env_runners`` says.
+``stop()`` releases an algorithm's actors.
 """
 
 from __future__ import annotations
@@ -37,12 +38,6 @@ from ray_tpu_torch.rl.env import Env, TensorEnv, make_env, make_tensor_env
 from ray_tpu_torch.rl.multi_agent import MultiAgentEnv
 from ray_tpu_torch.rl.rl_module import RLModuleSpec
 from ray_tpu_torch.rl.spaces import Box
-
-# what needs actors, object refs or deployments waits for the copy of
-# the runtime
-NEEDS_RUNTIME = ("needs the runtime, which is not ported yet (ROADMAP.md "
-                 "Queue 1 item 9)")
-
 
 class AlgorithmConfig:
     """Fluent config; subclass per algorithm for defaults."""
@@ -238,11 +233,6 @@ class Algorithm:
     supports_multi_agent = False
 
     def __init__(self, config: AlgorithmConfig, device: DeviceLike = None):
-        if config.num_env_runners:
-            raise NotImplementedError(
-                f"num_env_runners={config.num_env_runners}: remote env "
-                f"runners and the connector-state sync between them "
-                f"{NEEDS_RUNTIME}")
         self.config = config
         self.device = resolve_device(device)
         self.iteration = 0
@@ -334,3 +324,7 @@ class Algorithm:
     def restore_from_path(self, path: str) -> None:
         self.set_state(torch.load(os.path.join(path, "algorithm_state.pt"),
                                   map_location="cpu", weights_only=True))
+
+    def stop(self) -> None:
+        """Release what the algorithm holds on the runtime (nothing
+        unless a subclass started actors)."""

@@ -1,8 +1,7 @@
-"""RL algorithms of the port: PPO (single- and multi-agent), DQN, SAC,
-BC/MARWIL, CQL, IQL and DreamerV3 on local runners, and the IMPALA
-learner. APPO's and IMPALA's asynchronous loops need remote env runners
-(ROADMAP.md Queue 1 item 9) and raise ``NotImplementedError`` when
-built."""
+"""RL algorithms of the port: PPO (single- and multi-agent, local or
+remote env runners, one learner or several learner actors), APPO and
+IMPALA over remote env runners, and DQN, SAC, BC/MARWIL, CQL, IQL and
+DreamerV3 on local runners."""
 
 from ray_tpu_torch.rl.algorithms.appo import APPO, APPOConfig
 from ray_tpu_torch.rl.algorithms.bc import BC, BCConfig, MARWIL, MARWILConfig

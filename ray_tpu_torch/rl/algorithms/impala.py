@@ -1,4 +1,4 @@
-"""IMPALA — V-trace and its learner (port of
+"""IMPALA — V-trace, its learner and the asynchronous loop (port of
 ray_tpu/rl/algorithms/impala.py; reference: rllib/algorithms/impala/,
 Espeholt et al. 2018).
 
@@ -7,17 +7,21 @@ truncated importance weights over time-major [T, N] columns; the
 reference scans over T in reverse (``lax.scan(reverse=True)``), the
 port loops over T on device tensors. ``IMPALALearner`` trains one pass
 per fragment on the port's ``Learner``, with the reference's
-``stop_gradient`` as ``detach()`` in the same places. The asynchronous
-actor loop (``IMPALA``, shared with APPO) needs remote env runners and
-raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 9).
+``stop_gradient`` as ``detach()`` in the same places. ``IMPALA`` is
+APPO's asynchronous loop over remote env runners with the V-trace
+learner: fragments stay time-major and train whole, one update each,
+without GAE or shuffled epochs, so the learner is one local learner.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, List
+
+import numpy as np
 import torch
 
 from ray_tpu_torch.rl.algorithms.appo import APPO, APPOConfig
-from ray_tpu_torch.rl.learner import Learner
+from ray_tpu_torch.rl.learner import Learner, mean_metrics
 from ray_tpu_torch.rl.sample_batch import (
     ACTIONS, DONES, FINAL_OBS, LOGP, OBS, REWARDS, TRUNCATEDS)
 
@@ -48,7 +52,13 @@ def vtrace_returns(log_rhos, discounts, rewards, values, bootstrap_value,
 
 
 class IMPALAConfig(APPOConfig):
-    pass
+    def __init__(self):
+        super().__init__()
+        self.clip_rho_threshold = 1.0
+        self.clip_pg_rho_threshold = 1.0
+        self.lr = 5e-4
+        self.entropy_coeff = 0.01
+        self.vf_loss_coeff = 0.5
 
 
 class IMPALALearner(Learner):
@@ -100,6 +110,38 @@ class IMPALALearner(Learner):
 
 class IMPALA(APPO):
     """APPO's asynchronous actor loop with the V-trace learner."""
+
+    learner_cls = IMPALALearner
+
+    def _learner_kwargs(self, config) -> Dict[str, Any]:
+        return dict(
+            module_spec=self.spec, lr=config.lr,
+            grad_clip=config.grad_clip, seed=config.seed,
+            gamma=config.gamma,
+            clip_rho_threshold=config.clip_rho_threshold,
+            clip_pg_rho_threshold=config.clip_pg_rho_threshold,
+            vf_loss_coeff=config.vf_loss_coeff,
+            entropy_coeff=config.entropy_coeff)
+
+    def setup(self, config: IMPALAConfig) -> None:
+        if config.num_learners > 1:
+            # V-trace consumes whole time-major sequences; splitting a
+            # fragment's rows across learner actors would cut them
+            raise ValueError("IMPALA supports num_learners <= 1 "
+                             "(fragments train whole, time-major)")
+        super().setup(config)
+
+    # -- fragment hooks: keep time-major, no GAE/epochs ---------------
+    def _prepare_fragment(self, cols, module):
+        return {key: np.asarray(value) for key, value in cols.items()}
+
+    def _train_fragments(self, batches: List[dict]) -> Dict[str, Any]:
+        learner = self.learner_group.local_learner
+        all_metrics = []
+        for batch in batches:
+            self._env_steps_lifetime += int(batch["rewards"].size)
+            all_metrics.append(learner.update(batch))
+        return mean_metrics(all_metrics)
 
 
 IMPALAConfig.algo_class = IMPALA

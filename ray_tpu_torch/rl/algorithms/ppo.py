@@ -11,16 +11,26 @@ Two sampling paths, selected automatically:
   one local ``SingleAgentEnvRunner`` samples Python envs through its
   connector pipeline.
 
-With ``config.multi_agent(...)`` one local ``MultiAgentEnvRunner`` (or
-``TurnBasedEnvRunner`` for an env with ``turn_based = True``) samples
-the envs, and each module trains its own ``PPOLearner``. Remote env
-runners are ROADMAP.md Queue 1 item 9, several learner actors item 4.3;
-one ``PPOLearner(mesh=...)`` trains data-parallel (rl/learner.py).
+- ``num_env_runners > 0``: that many ``_EnvRunnerActor``s on the port's
+  runtime sample Python envs in CPU worker processes, their policy on
+  ``device="cpu"`` (where the reference's "cpu"-profile runners
+  compute); the learner stays on the algorithm's device. Stateful
+  connectors sync through disjoint deltas that ride the sample payloads
+  (ppo.py:420-462).
+
+``num_learners > 1`` trains on that many learner actors
+(``LearnerGroup``); one ``PPOLearner(mesh=...)`` trains data-parallel
+instead (rl/learner.py). With ``config.multi_agent(...)`` one local
+``MultiAgentEnvRunner`` (or ``TurnBasedEnvRunner`` for an env with
+``turn_based = True``) samples the envs, and each module trains its own
+``PPOLearner``; like the reference, multi-agent PPO refuses remote
+runners, several learners and connectors.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import math
 from typing import Any, Dict, List
 
@@ -34,6 +44,7 @@ from ray_tpu_torch.rl.learner import (
     Learner, LearnerGroup, compute_gae, mean_metrics)
 from ray_tpu_torch.rl.multi_agent import (
     MultiAgentEnvRunner, TurnBasedEnvRunner, infer_module_specs)
+from ray_tpu_torch.rl.rl_module import load_params
 from ray_tpu_torch.rl.sample_batch import (
     ACTIONS, ADVANTAGES, DONES, FINAL_OBS, LOGP, OBS, REWARDS,
     TRUNCATEDS, VALUE_TARGETS, VF_PREDS, SampleBatch, concat_samples)
@@ -114,27 +125,85 @@ class PPOLearner(Learner):
         return total, metrics
 
 
+class _EnvRunnerActor:
+    """A ``SingleAgentEnvRunner`` in a worker process (reference:
+    ppo.py:83-118, env_runner_group.py's actor pool). Its policy runs on
+    the CPU; each runner builds its own connector pipeline from the
+    config's factories."""
+
+    def __init__(self, blob: bytes):
+        from ray_tpu_torch.core import serialization
+        # a blob: serialization.dumps ships the driver's own modules
+        # (an env class in a script or a test file) by value
+        kwargs = serialization.loads(blob)
+        factories = kwargs.pop("connector_factories", None)
+        if factories:
+            from ray_tpu_torch.rl.connectors import ConnectorPipeline
+            kwargs["connectors"] = ConnectorPipeline(
+                [f() for f in factories])
+        self.runner = SingleAgentEnvRunner(device="cpu", **kwargs)
+
+    def sample(self):
+        batch = self.runner.sample()
+        # connector deltas piggyback on the payload: a separate
+        # pop_connector_delta round trip would queue behind the NEXT
+        # in-flight sample and turn the sync into a barrier
+        return (dict(batch), self.runner.pop_metrics(),
+                self.runner.pop_connector_delta())
+
+    def set_weights(self, weights) -> None:
+        self.runner.set_weights(weights)
+
+    def get_connector_state(self):
+        return self.runner.get_connector_state()
+
+    def pop_connector_delta(self):
+        return self.runner.pop_connector_delta()
+
+    def set_connector_state(self, state) -> None:
+        self.runner.set_connector_state(state)
+
+    def ping(self) -> bool:
+        return True
+
+
 class PPO(Algorithm):
     supports_multi_agent = True
+    learner_cls = PPOLearner  # subclass hook (IMPALA swaps in V-trace)
+
+    def _learner_kwargs(self, config) -> Dict[str, Any]:
+        return dict(
+            module_spec=self.spec, lr=config.lr,
+            grad_clip=config.grad_clip, seed=config.seed,
+            clip_param=config.clip_param,
+            vf_clip_param=config.vf_clip_param,
+            vf_loss_coeff=config.vf_loss_coeff,
+            entropy_coeff=config.entropy_coeff)
 
     def setup(self, config: PPOConfig) -> None:
         self._eval_runner = None
+        self._remote = False
+        self._value_module = None
         if config.is_multi_agent:
             self._setup_multi_agent(config)
             return
         self.ma_runner = None
         self.spec = config.module_spec()
         self.learner_group = LearnerGroup(
-            PPOLearner, num_learners=config.num_learners,
-            module_spec=self.spec, lr=config.lr,
-            grad_clip=config.grad_clip, seed=config.seed,
-            clip_param=config.clip_param,
-            vf_clip_param=config.vf_clip_param,
-            vf_loss_coeff=config.vf_loss_coeff,
-            entropy_coeff=config.entropy_coeff, device=self.device)
+            type(self).learner_cls, num_learners=config.num_learners,
+            device=self.device, **self._learner_kwargs(config))
         self._rng = np.random.default_rng(config.seed)
+        # connector sync (remote runners): one template pipeline holds
+        # the driver's canonical state, folded from the runners' deltas
+        self._connector_template = (config.build_connectors()
+                                    if config.connector_factories else None)
+        self._connector_state = (self._connector_template.get_state()
+                                 if self._connector_template is not None
+                                 else None)
         tensor_env = config.make_tensor_env()
-        if tensor_env is not None and not config.connector_factories:
+        if (tensor_env is not None and config.num_env_runners == 0
+                and config.num_learners <= 1
+                and not config.connector_factories):
             self.tensor_runner = TensorEnvRunner(
                 tensor_env, self.spec,
                 num_envs=config.num_envs_per_env_runner,
@@ -143,25 +212,41 @@ class PPO(Algorithm):
             self.runners = None
             return
         self.tensor_runner = None
-        self.runners = [SingleAgentEnvRunner(
+        runner_kwargs = dict(
             env_creator=(config.env_creator
                          or (lambda cfg=config: cfg.make_python_env())),
             module_spec=self.spec,
             num_envs=config.num_envs_per_env_runner,
-            rollout_len=config.rollout_fragment_length,
-            seed=config.seed, connectors=config.build_connectors(),
-            device=self.device)]
+            rollout_len=config.rollout_fragment_length)
+        if config.num_env_runners == 0:
+            self.runners = [SingleAgentEnvRunner(
+                seed=config.seed, connectors=config.build_connectors(),
+                device=self.device, **runner_kwargs)]
+            return
+        import ray_tpu_torch
+        from ray_tpu_torch.core import serialization
+        self._runner_actor_cls = ray_tpu_torch.remote(_EnvRunnerActor)
+        self._runner_blobs = [
+            serialization.dumps(dict(
+                seed=config.seed + i,
+                connector_factories=config.connector_factories,
+                **runner_kwargs))
+            for i in range(config.num_env_runners)]
+        self.runners = [self._runner_actor_cls.remote(blob)
+                        for blob in self._runner_blobs]
+        ray_tpu_torch.get([r.ping.remote() for r in self.runners])
+        self._remote = True
 
     # -- multi-agent (reference: multi_rl_module.py:40 module dict +
     #    per-policy learners; policy_mapping_fn routes agent streams) ---
     def _setup_multi_agent(self, config: PPOConfig) -> None:
-        if config.num_learners > 1 or config.connector_factories:
-            # (num_env_runners already raised in Algorithm.__init__)
+        if (config.num_env_runners or config.num_learners > 1
+                or config.connector_factories):
             raise NotImplementedError(
-                "multi-agent PPO runs one local env runner and per-module "
-                "local learners; several learners are ROADMAP.md Queue 1 "
-                "item 7's remote parts, and env_to_module connectors on the "
-                "multi-agent runner wait for the remote runners of item 9")
+                "multi-agent PPO currently runs one local env runner "
+                "and per-module local learners; num_env_runners, "
+                "num_learners and env_to_module connectors are "
+                "single-agent-only for now")
         env = config.make_multi_agent_env()
         try:
             self.ma_specs = infer_module_specs(
@@ -257,11 +342,16 @@ class PPO(Algorithm):
         else:
             self._eval_runner.set_weights(self.learner_group.get_weights())
         # Stateful connectors (ObsNormalizer): evaluation must see the
-        # statistics the policy was trained under, not a fresh
-        # pipeline's identity transform. A copy: the reference hands
-        # over the training runner's arrays, which evaluation's own
-        # updates would then move.
-        if self.runners is not None:
+        # statistics the policy was trained under (the driver's
+        # canonical state with remote runners), not a fresh pipeline's
+        # identity transform. A copy: the reference hands over the
+        # training runner's arrays, which evaluation's own updates
+        # would then move.
+        if self._remote:
+            if self._connector_state is not None:
+                self._eval_runner.set_connector_state(
+                    copy.deepcopy(self._connector_state))
+        elif self.runners is not None:
             self._eval_runner.set_connector_state(
                 copy.deepcopy(self.runners[0].get_connector_state()))
         # Episodes begun under previous weights must not leak into this
@@ -294,6 +384,22 @@ class PPO(Algorithm):
         return out
 
     # ------------------------------------------------------------------
+    def stop(self) -> None:
+        """Release the remote actors: leaked env runners would keep
+        their CPUs, learner actors their card shares."""
+        if self._remote and self.runners:
+            import ray_tpu_torch
+            for runner in self.runners:
+                try:
+                    ray_tpu_torch.kill(runner)
+                except Exception:  # noqa: BLE001 — runner already dead
+                    logging.getLogger(__name__).debug(
+                        "runner kill failed", exc_info=True)
+            self.runners = []
+        group = getattr(self, "learner_group", None)
+        if group is not None:
+            group.shutdown()
+
     def training_step(self) -> Dict[str, Any]:
         if self.ma_runner is not None:
             return self._training_step_multi()
@@ -350,15 +456,55 @@ class PPO(Algorithm):
         batch = self._postprocess(cols, learner.module)
         return self._sgd_epochs(batch, self.learner_group)
 
-    def _training_step_python(self) -> Dict[str, Any]:
+    def _weights_module(self, weights):
+        """The module GAE's values come from: the local learner's, or,
+        with learner actors, a driver copy loaded with ``weights``."""
         learner = self.learner_group.local_learner
-        weights = learner.get_weights()
+        if learner is not None:
+            return learner.module
+        if self._value_module is None:
+            self._value_module = self.spec.init(self.config.seed,
+                                                self.device)
+        load_params(self._value_module, weights)
+        return self._value_module
+
+    def _merge_connector_deltas(self, deltas) -> None:
+        """Fold the runners' disjoint deltas (the statistics each saw
+        since the last sync) into the canonical state and broadcast it,
+        fire-and-forget: merging full states would double-count shared
+        history and inflate the Welford count about world-size times
+        an iteration (reference: rllib's filter delta buffers). Runs
+        for one remote runner too: evaluate() reads the canonical
+        state."""
+        if self._connector_template is None or not deltas:
+            return
+        self._connector_state = self._connector_template.merge_states(
+            [self._connector_state] + list(deltas))
+        for r in self.runners:
+            r.set_connector_state.remote(self._connector_state)
+
+    def _training_step_python(self) -> Dict[str, Any]:
+        weights = self.learner_group.get_weights()
+        module = self._weights_module(weights)
         batches = []
-        for runner in self.runners:
-            runner.set_weights(weights)
-            cols = runner.sample()
-            batches.append(self._postprocess(cols, learner.module))
-            self.record_episodes(runner.pop_metrics()["episode_returns"])
+        if self._remote:
+            import ray_tpu_torch
+            ray_tpu_torch.get([r.set_weights.remote(weights)
+                               for r in self.runners])
+            deltas = []
+            for cols, metrics, delta in ray_tpu_torch.get(
+                    [r.sample.remote() for r in self.runners]):
+                batches.append(self._postprocess(cols, module))
+                self.record_episodes(metrics["episode_returns"],
+                                     metrics["episode_lens"])
+                deltas.append(delta)
+            self._merge_connector_deltas(deltas)
+        else:
+            for runner in self.runners:
+                runner.set_weights(weights)
+                cols = runner.sample()
+                batches.append(self._postprocess(cols, module))
+                self.record_episodes(runner.pop_metrics()["episode_returns"])
         batch = concat_samples(batches)
         self._env_steps_lifetime += len(batch)
         return self._sgd_epochs(batch, self.learner_group)

@@ -1,9 +1,14 @@
-"""Podracer RL architectures of the port: :class:`Anakin`, the fused
-rollout -> GAE -> PPO update on one device or over shards in lockstep; Sebulba's fragment replay
-(``FragmentReplay``) and its int8 weight push (``quantize_params``,
-``dequantize_params``). Sebulba itself, its ``ReplayActor`` and its
-``PolicyInference`` deployment come with the runtime copy, ROADMAP.md
-Queue 1 item 9."""
+"""Podracer RL architectures of the port (PAPERS.md: "Podracer
+architectures for scalable deep reinforcement learning").
+
+- :class:`Anakin`: the fused rollout -> GAE -> PPO update on one device
+  or over shards in lockstep.
+- :class:`Sebulba`: everything decoupled on the port's runtime: host
+  env-runner actors, a batched inference server on
+  ``ray_tpu_torch.serve`` (``PolicyInference``), an object-store replay
+  queue (``ReplayActor``) and a learner actor that broadcasts
+  version-tagged int8 weights (``quantize_params``) mid-flight.
+"""
 
 from ray_tpu_torch.rl.podracer.anakin import (
     Anakin,
@@ -14,11 +19,28 @@ from ray_tpu_torch.rl.podracer.anakin import (
     make_optimizer,
 )
 from ray_tpu_torch.rl.podracer.inference import (
+    PolicyInference,
+    broadcast_weights,
+    build_inference_app,
     dequantize_params,
     quantize_params,
 )
-from ray_tpu_torch.rl.podracer.replay import DEFAULT_CAPACITY, FragmentReplay
+from ray_tpu_torch.rl.podracer.replay import (
+    DEFAULT_CAPACITY,
+    FragmentReplay,
+    ReplayActor,
+    create_replay_actor,
+)
+from ray_tpu_torch.rl.podracer.sebulba import (
+    Sebulba,
+    SebulbaConfig,
+    _SebulbaActorImpl,
+    _SebulbaLearnerImpl,
+)
 
 __all__ = ["Anakin", "AnakinConfig", "DEFAULT_CAPACITY", "FragmentReplay",
-           "build_lockstep", "build_step", "dequantize_params", "init_shard",
+           "PolicyInference", "ReplayActor", "Sebulba", "SebulbaConfig",
+           "_SebulbaActorImpl", "_SebulbaLearnerImpl", "broadcast_weights",
+           "build_inference_app", "build_lockstep", "build_step",
+           "create_replay_actor", "dequantize_params", "init_shard",
            "make_optimizer", "quantize_params"]

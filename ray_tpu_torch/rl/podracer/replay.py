@@ -7,17 +7,23 @@ freshest fragment is always worth more than the one the learner never
 got to). ``dropped`` counts evictions so the caller can see a learner
 that can't keep up. Depth is therefore bounded by construction.
 
+Trajectory fragments do not move through the queue: env-runner actors
+``ray_tpu_torch.put`` each fragment and push only ``(meta, [ref])``, so
+the queue holds object references plus a few floats of metadata however
+fat the fragments are; the learner pops the references and ``get``s
+them from the object store.
+
 ``FragmentReplay`` is a plain thread-safe class, which the devtools
-``check`` smoke and the tests exercise in-process. The reference's
-``ReplayActor``, the remote wrapper the Sebulba pipeline deploys, comes
-with the runtime copy, ROADMAP.md Queue 1 item 9.
+``check`` smoke and the tests exercise in-process; ``ReplayActor`` is
+the thin remote wrapper the Sebulba pipeline deploys on the port's
+runtime (a named actor, looked up by learner and actors alike).
 """
 
 from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 DEFAULT_CAPACITY = 64
 
@@ -66,3 +72,44 @@ class FragmentReplay:
             return {"depth": len(self._items), "capacity": self.capacity,
                     "pushed": self._pushed, "dropped": self._dropped,
                     "popped": self._popped}
+
+
+class ReplayActor:
+    """Remote wrapper; deployed as a named actor so every Sebulba
+    participant can look it up without shipping handles around."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        self._replay = FragmentReplay(capacity)
+
+    def push(self, item: Any) -> bool:
+        return self._replay.push(item)
+
+    def pop_many(self, max_items: int = 1) -> List[Any]:
+        return self._replay.pop_many(max_items)
+
+    def depth(self) -> int:
+        return self._replay.depth()
+
+    def stats(self) -> Dict[str, int]:
+        return self._replay.stats()
+
+    def ping(self) -> bool:
+        return True
+
+
+def create_replay_actor(capacity: int = DEFAULT_CAPACITY,
+                        name: Optional[str] = None, wait: bool = True):
+    """Spawn the (optionally named) replay actor and, with ``wait``,
+    wait until it is live (a name resolves from the moment the actor is
+    submitted). The queue holds refs and metadata only, so it asks for
+    no CPU share (as serve replicas do): a 1-CPU node still schedules
+    the whole Sebulba constellation."""
+    import ray_tpu_torch
+    opts: dict = {"num_cpus": 0}
+    if name:
+        opts["name"] = name
+    handle = ray_tpu_torch.remote(ReplayActor).options(**opts).remote(
+        capacity)
+    if wait:
+        ray_tpu_torch.get(handle.ping.remote())
+    return handle

@@ -196,16 +196,28 @@ def store_push(label: str, events: List[tuple], offset_ns: int) -> None:
 
 # --- process wiring ------------------------------------------------------
 
+# The variables ``init_driver`` sets or pops, so that workers forked
+# later inherit the session's configuration.
+_ENV_FLAGS = ("RTPU_FLIGHT_RECORDER_ENABLED", "RTPU_FLIGHT_RECORDER_CAPACITY",
+              "RTPU_FLIGHT_FLUSH_INTERVAL_S")
+# Their values before the session's ``init_driver`` (None: unset), put
+# back by ``shutdown_driver``; None outside a session.
+_saved_env: Optional[Dict[str, Optional[str]]] = None
+
+
 def init_driver() -> None:
     """Reset collector state and (when configured) enable the driver's
     own recorder. Called from Runtime.__init__; env flags are mirrored
-    so workers forked later inherit the same configuration."""
-    global _STORE, _anchor
+    so workers forked later inherit the same configuration, and
+    ``shutdown_driver`` puts them back as they were."""
+    global _STORE, _anchor, _saved_env
     from ray_tpu_torch.core.config import get_config
     cfg = get_config()
     _STORE = FlightStore()
     _anchor = None
     stop_flusher()
+    if _saved_env is None:
+        _saved_env = {k: os.environ.get(k) for k in _ENV_FLAGS}
     if cfg.flight_recorder_enabled:
         os.environ["RTPU_FLIGHT_RECORDER_ENABLED"] = "1"
         os.environ["RTPU_FLIGHT_RECORDER_CAPACITY"] = str(
@@ -217,6 +229,23 @@ def init_driver() -> None:
     else:
         os.environ.pop("RTPU_FLIGHT_RECORDER_ENABLED", None)
         disable()
+
+
+def shutdown_driver() -> None:
+    """Runtime shutdown: stop the flusher, disable the recorder and put
+    the ``RTPU_FLIGHT_*`` variables back as they were before
+    ``init_driver``. The collected journals stay readable
+    (``merged_journals``) until the next session's ``init_driver``."""
+    global _saved_env
+    stop_flusher()
+    disable()
+    if _saved_env is not None:
+        for key, value in _saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        _saved_env = None
 
 
 def init_worker(rt, worker_id) -> None:

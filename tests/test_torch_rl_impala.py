@@ -178,10 +178,17 @@ def test_impala_learner_updates_match_jax():
 @pytest.mark.parametrize("config", [APPOConfig, IMPALAConfig])
 @pytest.mark.parametrize("runners", [0, 2])
 def test_async_loops_refuse(config, runners):
-    """APPO and IMPALA run over remote env runners, which need the
-    runtime; the reference refuses fewer than one runner itself."""
+    """APPO and IMPALA run over remote env runners: with none they
+    refuse, as the reference does, and with runners but no runtime the
+    runner actors cannot start (the loops themselves run in
+    tests/test_torch_rl_appo_impala.py)."""
+    import ray_tpu_torch
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
     cfg = config().environment("CartPole-v1").env_runners(
         num_env_runners=runners)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    error, match = ((ValueError, "num_env_runners >= 1") if runners == 0
+                    else (RuntimeError, r"init\(\) has not been called"))
+    with pytest.raises(error, match=match):
         cfg.build_algo(device="cpu")
 

@@ -396,10 +396,14 @@ def test_ppo_state_roundtrip(tmp_path):
 
 # -- the refusals ---------------------------------------------------------
 
+# the reference's own refusal (ray_tpu/rl/algorithms/ppo.py:198-204)
 @pytest.mark.parametrize("configure,match", [
-    (lambda c: c.env_runners(num_env_runners=1), "Queue 1 item 9"),
-    (lambda c: c.learners(num_learners=2), "Queue 1 item 7"),
-    (lambda c: c.env_to_module([ObsNormalizer]), "connectors"),
+    (lambda c: c.env_runners(num_env_runners=1),
+     "num_env_runners, num_learners and env_to_module connectors are "
+     "single-agent-only"),
+    (lambda c: c.learners(num_learners=2), "single-agent-only for now"),
+    (lambda c: c.env_to_module([ObsNormalizer]),
+     "multi-agent PPO currently runs one local env runner"),
 ], ids=["remote_runners", "several_learners", "connectors"])
 def test_multi_agent_unported_paths_refuse(configure, match):
     with pytest.raises(NotImplementedError, match=match):

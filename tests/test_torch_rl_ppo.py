@@ -248,16 +248,12 @@ def test_ppo_checkpoint_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("configure,match", [
-    (lambda c: c.env_runners(num_env_runners=2), "Queue 1 item 9"),
-    (lambda c: c.learners(num_learners=2), "Queue 1 item 7"),
-    # connectors run on the local runner; their state sync between
-    # remote runners waits for the runtime
-    (lambda c: c.env_to_module([ObsNormalizer]).env_runners(
-        num_env_runners=1), "connector-state sync"),
-    # multi-agent PPO runs; with a connector it still refuses (item 9)
+    # multi-agent PPO runs; with a connector it refuses, in the
+    # reference's words (remote runners, learner actors and connectors
+    # run: tests/test_torch_rl_remote_runners.py, _learner_group.py)
     (lambda c: c.multi_agent(policy_mapping_fn=lambda aid: "p0")
      .env_to_module([ObsNormalizer]), "multi-agent"),
-], ids=["remote_runners", "several_learners", "connectors", "multi_agent"])
+], ids=["multi_agent"])
 def test_unported_paths_refuse(configure, match):
     with pytest.raises(NotImplementedError, match=match):
         configure(PPOConfig().environment("CartPole-v1")).build_algo(
