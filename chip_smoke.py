@@ -53,6 +53,27 @@ batched path counted (``engine_extras``); prefill_only -> host ->
 add_prefilled between two engines (``engine_disagg``); the extras on the
 tiny f32 config on the card against the CPU (``extras_tiny_f32``); and
 the tokenize -> engine -> detokenize batch stages (``batch_stages``).
+Then (5b) the LLM surface on Serve, as replicas of the port's runtime
+behind its HTTP proxy, each replica's launches counted in its own
+process and read back through ``__ray_call__``: ``serve_llm``, the
+OpenAI app of Llama-3-8B at full width and depth on the whole card,
+phase 4's four prompts (printable ASCII after the byte tokenizer's BOS,
+so that they travel as text) one at a time over HTTP with every served
+token id held to phase 4's, an SSE stream, chat, n 2, the model list, an
+unknown model, a ``traceparent`` request whose proxy, router, replica
+and engine spans reach the trace store, and a 15 s open-loop poisson
+``loadgen`` run through the proxy with no error (K1 and K4, no K2, K3
+or K5); ``serve_multiplex``, two 4-layer full-width models (bf16, and
+int8 for K5) behind one replica holding one at a time, A, B, A with each
+eviction stopping its engine, the per-model counters, the 404 of an
+unknown id, and one local-testing-mode call in this process equal to the
+replica's; ``serve_prefix``, two 4-layer replicas on half the card each
+behind the prefix-aware router in tests/test_serve.py:456's affinity
+scenario; ``serve_disagg``, Llama-3-8B split into a prefill and a decode
+replica on half the card each, the four prompts' texts, usage and ids
+equal to ``serve_llm``'s, one stream, the K/V block's size and hand-off
+time; and the card's free memory back after Serve's and the runtime's
+shutdown. The gRPC proxy is held on the CPU only (no ``grpc`` there).
 Then (6) a 2-layer full-width prefill on the card against the plain f32
 version on the CPU, (7) training Llama-3-8B at full width and depth (loss,
 backward, fused AdamW; remat and chunked cross-entropy) for a warm-up
@@ -131,8 +152,8 @@ to the first; stage 0 dying mid-step raising ``DAGExecutionError`` that
 names it; a bf16 device object actor -> driver, actor -> actor and
 driver -> actor bit for bit; and the card's free memory back once every
 process is shut down, (11) the kernel list, with each
-kernel's launches summed over phases 3b-10c (the trainer's and the
-pipeline's from their worker processes). The
+kernel's launches summed over phases 3b-10c (the trainer's, the
+pipeline's and the Serve replicas' from their worker processes). The
 backward is also timed whole, as the model calls it (delta, K2, K3 and
 K3's group sum), against SDPA's backward. Every kernel's launch count
 is zeroed just before each engine phase, each feature phase, each
@@ -1596,6 +1617,592 @@ def run_features(dev, params, prompts, bf16, outs_bf16, outs_int8, card):
     for name, required, fn, args in phases:
         counts = run_phase(name, required, fn, *args)
         total = {k: total[k] + counts[k] for k in total}
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the LLM surface on Serve: replicas of the port's runtime on the card
+# ---------------------------------------------------------------------------
+
+SERVE_LAYERS = 4  # serve_multiplex and serve_prefix: 4 of Llama-3-8B's 32
+SERVE_READY_S = 300.0  # a deployment's replicas up and healthy
+LOADGEN_S = 15.0  # the open-loop run through the proxy
+LOADGEN_IN_FLIGHT = 4.0  # its rate: this many single-request latencies
+SERVE_FREED_SLACK = 512 << 20  # card memory the serve phases may leave
+# the object store's arena: a 700-token prompt's K/V block is 134 MB in
+# bf16, and the default 256 MiB arena would spill blocks to disk
+SERVE_ARENA_BYTES = 4 << 30
+# fractional-GPU workers warmed before the first deployment: the
+# multiplex replica, the two prefix replicas, prefill and decode (a
+# fresh process spends ~8 s importing torch on the card machine)
+SERVE_WARM_GPU_WORKERS = 5
+SPAN_NAMES = ("http_request", "route", "handle_request_streaming",
+              "engine_generate")
+
+
+def serve_config(model_id, n_layers=None, quantization=None, seed=SEED,
+                 **fields):
+    """An LLMConfig of Llama-3-8B (``n_layers`` of its 32 when given),
+    serving NEW_TOKENS greedy tokens by default."""
+    from ray_tpu_torch.llm.engine import EngineConfig
+    from ray_tpu_torch.serve.llm import LLMConfig
+    model = full_config()
+    if n_layers is not None:
+        model = dataclasses.replace(model, n_layers=n_layers)
+    return LLMConfig(model_id=model_id, engine=EngineConfig(
+        model=model, max_batch=MAX_BATCH, max_seq=MAX_SEQ, seed=seed,
+        quantization=quantization), max_tokens=NEW_TOKENS, **fields)
+
+
+def replica_launches(replica, reset=False):
+    """(In a replica's process, through ``__ray_call__``.) Its launch
+    count of each kernel wrapper, zeroed after the read with ``reset``."""
+    fns = _counted()
+    out = {name: fn.launches for name, fn in fns.items()}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return out
+
+
+def replica_capture(replica):
+    """(In a replica's process.) Keep every request its engine admits
+    from now on (``add_request`` and ``add_prefilled``)."""
+    server = replica.callable
+    if hasattr(server, "_smoke_kept"):
+        return True
+    engine, kept = server.engine, []
+    add, adopt = engine.add_request, engine.add_prefilled
+
+    def add_request(request):
+        kept.append(request)
+        return add(request)
+
+    def add_prefilled(request, *args):
+        kept.append(request)
+        return adopt(request, *args)
+
+    engine.add_request, engine.add_prefilled = add_request, add_prefilled
+    server._smoke_kept = kept
+    return True
+
+
+def replica_captured(replica):
+    """(In a replica's process.) [(prompt ids, output ids, finish reason,
+    error)] of the kept requests in admission order; the list empties."""
+    kept = replica.callable._smoke_kept
+    out = [(list(r.prompt_ids), list(r.output_ids), r.finish_reason,
+            r.error) for r in kept]
+    kept.clear()
+    return out
+
+
+def replica_track_loads(replica):
+    """(In a multiplex replica's process.) Keep every LLMServer its LRU
+    loader hands out, so that evicted ones can be read after."""
+    mux = replica.callable
+    load, servers = mux._load, []
+
+    def tracked(model_id):
+        server = load(model_id)
+        if all(s is not server for s in servers):
+            servers.append(server)
+        return server
+
+    mux._load, mux._smoke_servers = tracked, servers
+    return True
+
+
+def replica_loaded(replica):
+    """(In a multiplex replica's process.) [(model id, stopped, stepper
+    alive)] of each server loaded, in load order; the list empties."""
+    servers = replica.callable._smoke_servers
+    out = [(s.config.model_id, s._stopped, s._stepper.is_alive())
+           for s in servers]
+    servers.clear()
+    return out
+
+
+def warm_worker():
+    """(A task in a fresh worker.) Import torch and the port's LLM
+    surface, make a CUDA context and a cuBLAS handle: the pooled worker
+    then hosts a replica without a fresh process's start."""
+    import torch
+    import ray_tpu_torch.serve.llm  # noqa: F401
+    if torch.cuda.is_available():
+        x = torch.ones(8, 8, device="cuda")
+        (x @ x).sum().item()
+    return os.getpid()
+
+
+def on_replicas(deployment_name, fn, *args):
+    """``fn(replica, *args)`` in each replica's process of a deployment;
+    {replica id: result}."""
+    import ray_tpu_torch
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+    controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+    _version, replicas = ray_tpu_torch.get(
+        controller.get_replicas.remote(deployment_name))
+    return {rid: ray_tpu_torch.get(h.__ray_call__.remote(fn, *args),
+                                   timeout=120)
+            for rid, h in replicas}
+
+
+def replica_counts(*deployment_names):
+    """The launches the replicas of these deployments made, summed."""
+    total = {name: 0 for name in _counted()}
+    for dep in deployment_names:
+        for counts in on_replicas(dep, replica_launches).values():
+            total = add_counts(total, counts)
+    return total
+
+
+def http(port, path, body=None, headers=None, timeout=300):
+    """(status, response headers, body text) of one request to the
+    proxy; an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers, exc.read().decode()
+
+
+def http_ok(what, port, path, body=None, **kw):
+    """A JSON answer with status 200 and no error in it."""
+    status, _headers, raw = http(port, path, body, **kw)
+    check(status == 200, f"{what}: HTTP {status} {raw[:300]}")
+    out = json.loads(raw)
+    check_response(what, out)
+    return out
+
+
+def sse_events(what, headers, raw):
+    """An SSE body's JSON events; it must end with [DONE] and carry no
+    error."""
+    check(headers.get("Content-Type", "").startswith("text/event-stream"),
+          f"{what}: not an event stream")
+    check(raw.endswith("data: [DONE]\n\n"), f"{what}: no [DONE]")
+    events = [json.loads(e[len("data: "):]) for e in raw.split("\n\n")
+              if e.startswith("data: {")]
+    check(events and all("error" not in e for e in events),
+          f"{what}: an event carries an error")
+    return events
+
+
+def strip_ids(obj):
+    """A response without its random completion and tool-call ids."""
+    if isinstance(obj, dict):
+        return {k: strip_ids(v) for k, v in obj.items()
+                if not (k == "id" and isinstance(v, str) and
+                        v.startswith(("cmpl-", "chatcmpl-", "call_")))}
+    if isinstance(obj, list):
+        return [strip_ids(v) for v in obj]
+    return obj
+
+
+def stream_rows(served, wants):
+    """Each served greedy stream against its expected ids: equal token
+    for token, or (a batch composition that moves a row) the first
+    token equal, with where the first difference is and the agreement."""
+    rows = []
+    for (_ids, out, finish, error), want in zip(served, wants):
+        check(error is None and finish in ("length", "stop"),
+              f"a served request ended with {finish}: {error}")
+        check(out[0] == want[0], "a served request's first token differs")
+        diff = next((i for i, (a, b) in enumerate(zip(out, want))
+                     if a != b), None)
+        rows.append(dict(exact=diff is None and (
+            len(out) == len(want) or finish == "stop"),
+            first_difference=diff, agreement=agreement(out, want),
+            tokens=len(out), finish=finish))
+    return rows
+
+
+def serve_llm(rt, port, texts, prompts, outs_bf16, shared):
+    """Llama-3-8B (full width and depth, bf16, weights from the config's
+    seed) as one replica on the whole card behind the HTTP proxy:
+    phase 4's prompts one at a time, an SSE stream, chat, n 2, the
+    model list, an unknown model, a traced request and an open-loop
+    loadgen run."""
+    import os
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.serve import loadgen
+    from ray_tpu_torch.serve.llm import build_openai_app
+    name = "llama3-8b"
+    t0 = time.perf_counter()
+    serve.run(build_openai_app(config=serve_config(name)), name="llm",
+              route_prefix="/v1", timeout_s=SERVE_READY_S)
+    start_s = time.perf_counter() - t0
+    on_replicas(name, replica_launches, True)
+    on_replicas(name, replica_capture)
+    bodies, request_s = [], []
+    for i, text in enumerate(texts):
+        t1 = time.perf_counter()
+        bodies.append(http_ok(f"prompt {i}", port, "/v1/completions",
+                              {"prompt": text, "max_tokens": NEW_TOKENS}))
+        request_s.append(time.perf_counter() - t1)
+    (served,) = on_replicas(name, replica_captured).values()
+    check(len(served) == len(texts), f"{len(served)} requests served")
+    tok = ByteTokenizer()
+    for (ids, out, _finish, _err), prompt, body in zip(served, prompts,
+                                                        bodies):
+        check(ids == list(prompt), "a served prompt's ids are not phase 4's")
+        check(body["usage"] == {"prompt_tokens": len(ids),
+                                "completion_tokens": len(out),
+                                "total_tokens": len(ids) + len(out)},
+              f"usage {body['usage']}")
+        check(body["choices"][0]["text"] == tok.decode(
+            [t for t in out if t != tok.eos_id]), "text is not the ids'")
+    rows = stream_rows(served, outs_bf16)
+    shared["bodies"], shared["outs"] = bodies, [s[1] for s in served]
+
+    status, headers, raw = http(port, "/v1/completions", {
+        "prompt": texts[0], "max_tokens": NEW_TOKENS, "stream": True,
+        "stream_options": {"include_usage": True}})
+    check(status == 200, f"stream: HTTP {status}")
+    events = sse_events("stream", headers, raw)
+    check("".join(e["choices"][0]["text"] for e in events if e["choices"])
+          == bodies[0]["choices"][0]["text"]
+          and events[-1]["usage"] == bodies[0]["usage"],
+          "the streamed text or usage differs from the non-streamed one")
+    chat = http_ok("chat", port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": texts[1]}],
+        "max_tokens": 16})
+    check(chat["object"] == "chat.completion", "chat: not a chat answer")
+    n2 = http_ok("n2", port, "/v1/completions", {
+        "prompt": texts[0], "max_tokens": 16, "n": 2, "temperature": 0.8})
+    check(len(n2["choices"]) == 2, "n 2: not two choices")
+    models = http_ok("models", port, "/v1/models")
+    check(models["data"] == [{"id": name, "object": "model"}],
+          f"models {models}")
+    # one model behind LLMServer: an unknown id is the reference's
+    # invalid request (the multi-model surface's 404 is serve_multiplex's)
+    status, _headers, raw = http(port, "/v1/completions",
+                                 {"model": "nope", "prompt": "x"})
+    unknown = json.loads(raw)
+    check(status == 200 and unknown["error"]["type"]
+          == "invalid_request_error" and "nope" in
+          unknown["error"]["message"], f"unknown model: {status} {raw}")
+
+    trace_id = os.urandom(16).hex()
+    status, headers, raw = http(
+        port, "/v1/completions", {"prompt": texts[0], "max_tokens": 4},
+        headers={"traceparent": f"00-{trace_id}-{os.urandom(8).hex()}-01"})
+    check(status == 200 and trace_id in (headers.get("traceparent") or ""),
+          "the traced request's traceparent did not come back")
+    deadline = time.monotonic() + 15
+    while True:  # the replica's spans arrive by control-plane calls
+        spans = rt.gcs.spans_for_trace(trace_id)
+        names = {s[3] for s in spans}
+        if set(SPAN_NAMES) <= names or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(set(SPAN_NAMES) <= names, f"trace spans {sorted(names)}")
+    by_name = {s[3]: s for s in spans}
+    check(by_name["route"][2] == by_name["http_request"][1]
+          and by_name["engine_generate"][2]
+          == by_name["handle_request_streaming"][1],
+          "the trace's parent links are not the proxy's -> router's, "
+          "replica's -> engine's")
+
+    on_replicas(name, replica_captured)  # from here on: loadgen's only
+    latency = min(request_s)  # a warm request (the first pays start-up)
+    cfg = loadgen.LoadgenConfig(
+        rate=LOADGEN_IN_FLIGHT / latency, duration_s=LOADGEN_S,
+        arrival="poisson", prefix_groups=4, concurrency=32,
+        timeout_s=120.0, seed=SEED)
+    report = loadgen.run_load(cfg, loadgen.http_sender(
+        f"http://127.0.0.1:{port}/v1/completions", timeout_s=120.0))
+    (load_served,) = on_replicas(name, replica_captured).values()
+    check(report.errors == 0 and report.ok + report.shed
+          == report.offered, f"loadgen: {report.to_dict()}")
+    bad = [(finish, err) for _i, _o, finish, err in load_served
+           if err is not None or finish not in ("length", "stop")]
+    check(len(load_served) == report.ok and not bad,
+          f"loadgen: {len(load_served)} requests on the replica for "
+          f"{report.ok} answers, ended badly: {bad[:3]}")
+    counts = add_counts(replica_counts(name), read_counts())
+    check(counts["flash_attention"] > 0 and counts["rms_norm"] > 0,
+          f"serve_llm: the replica did not launch K1/K4: {counts}")
+    check(counts["flash_attention_bwd_dq"] == 0
+          and counts["flash_attention_bwd_dkv"] == 0
+          and counts["int8_matmul"] == 0,
+          f"serve_llm: K2/K3/K5 launched: {counts}")
+    serve.delete("llm")
+    return dict(
+        start_s=start_s, request_s=request_s, rows=rows,
+        exact_rows=sum(r["exact"] for r in rows),
+        tokens_per_s=[len(o) / s for o, s in
+                      zip(shared["outs"], request_s)],
+        stream_events=len(events), spans=sorted(names),
+        loadgen=dict(rate=cfg.rate, duration_s=cfg.duration_s,
+                     offered=report.offered, completed=report.ok,
+                     shed=report.shed, errors=report.errors,
+                     p50_ms=report.p50_ms, p99_ms=report.p99_ms,
+                     achieved_rps=report.achieved_rps),
+        note="host clock; the byte tokenizer decodes only ids < 256"), \
+        counts
+
+
+def serve_multiplex(rt, port, texts):
+    """Two Llama-3-8B-width models (4 of 32 layers) behind one
+    multiplexed replica that holds one at a time: A in bf16, B with int8
+    FFN weights (K5); requests to A, B, A, each eviction stopping the
+    evicted engine; the per-model counters, the model list and an
+    unknown id's 404; and one call of A in local testing mode in this
+    process, equal to the replica's."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import build_openai_app
+    from ray_tpu_torch.util import metrics
+    a = serve_config("mux-a", SERVE_LAYERS)
+    b = serve_config("mux-b", SERVE_LAYERS, quantization="int8",
+                     seed=SEED + 1)
+
+    def build():
+        return build_openai_app([a, b], max_models_per_replica=1,
+                                name="mux", num_gpus=0.5)
+
+    def counters():
+        with metrics._registry.lock:
+            return {(n, m): metrics._registry.counters.get(
+                (n, (("model", m),)), 0.0)
+                for n in ("ray_tpu_serve_llm_requests_total",
+                          "ray_tpu_serve_llm_generated_tokens_total")
+                for m in ("mux-a", "mux-b")}
+
+    t0 = time.perf_counter()
+    serve.run(build(), name="mux", route_prefix="/mux",
+              timeout_s=SERVE_READY_S)
+    start_s = time.perf_counter() - t0
+    on_replicas("mux", replica_launches, True)
+    on_replicas("mux", replica_track_loads)
+    before = counters()
+    order = [("mux-a", texts[1]), ("mux-b", texts[1]), ("mux-a", texts[2])]
+    answers, request_s = [], []
+    for model, text in order:
+        t1 = time.perf_counter()
+        answers.append(http_ok(model, port, "/mux/completions", {
+            "model": model, "prompt": text, "max_tokens": 16}))
+        request_s.append(time.perf_counter() - t1)
+        check(answers[-1]["model"] == model, "answered by another model")
+    status, _headers, raw = http(port, "/mux/completions",
+                                 {"model": "nope", "prompt": "x"})
+    check(status == 404 and json.loads(raw)["error"]["code"]
+          == "model_not_found", f"unknown model: {status} {raw}")
+    models = http_ok("models", port, "/mux/models")
+    check({m["id"] for m in models["data"]} == {"mux-a", "mux-b"},
+          f"models {models}")
+    (loaded,) = on_replicas("mux", replica_loaded).values()
+    check(loaded == [("mux-a", True, False), ("mux-b", True, False),
+                     ("mux-a", False, True)],
+          f"evictions did not stop the evicted engines: {loaded}")
+    deadline = time.monotonic() + 10
+    while True:  # counters reach the driver by control-plane calls
+        delta = {k: v - before[k] for k, v in counters().items()}
+        if delta[("ray_tpu_serve_llm_requests_total", "mux-a")] >= 2 or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    tokens = {m: sum(ans["usage"]["completion_tokens"] for (mm, _t), ans
+                     in zip(order, answers) if mm == m)
+              for m in ("mux-a", "mux-b")}
+    check(delta == {
+        ("ray_tpu_serve_llm_requests_total", "mux-a"): 2,
+        ("ray_tpu_serve_llm_requests_total", "mux-b"): 1,
+        ("ray_tpu_serve_llm_generated_tokens_total", "mux-a"):
+            tokens["mux-a"],
+        ("ray_tpu_serve_llm_generated_tokens_total", "mux-b"):
+            tokens["mux-b"]}, f"per-model counters {delta}")
+    counts = replica_counts("mux")
+    for kname in ("flash_attention", "rms_norm", "int8_matmul"):
+        check(counts[kname] > 0,
+              f"serve_multiplex: the replica never launched {kname}")
+    serve.delete("mux")
+
+    t1 = time.perf_counter()
+    local = serve.run(build(), local_testing_mode=True)
+    reset_counts()
+    body = local.remote({"__path__": "/v1/completions", "model": "mux-a",
+                         "prompt": texts[2], "max_tokens": 16}
+                        ).result(timeout_s=300)
+    local_counts = read_counts()
+    local._instance._load("mux-a").stop()
+    # @serve.multiplexed keeps its LRU in its module, one a process: a
+    # replica's goes with its process, this process's model goes here
+    from ray_tpu_torch.serve import multiplex
+    multiplex._caches.clear()
+    del local
+    free()
+    local_s = time.perf_counter() - t1
+    check(strip_ids(body) == strip_ids(answers[2]),
+          "the local testing mode's answer differs from the replica's")
+    return dict(start_s=start_s, request_s=request_s, loaded=loaded,
+                counters=[[list(k), v] for k, v in delta.items()],
+                local_mode_s=local_s, local_launches=local_counts), \
+        add_counts(counts, local_counts)
+
+
+def serve_prefix(rt, port, texts):
+    """Two Llama-3-8B-width replicas (4 of 32 layers) on half the card
+    each behind the prefix-aware router: tests/test_serve.py:456's
+    affinity scenario, six then four prompts sharing a 234-character
+    prefix, and one unrelated prompt."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.serve.llm import build_openai_app
+    cfg = serve_config("pfx", SERVE_LAYERS, num_replicas=2,
+                       prefix_routing=True)
+    t0 = time.perf_counter()
+    serve.run(build_openai_app(config=cfg, num_gpus=0.5), name="pfx",
+              route_prefix="/pfx", timeout_s=SERVE_READY_S)
+    start_s = time.perf_counter() - t0
+    on_replicas("pfx", replica_launches, True)
+    on_replicas("pfx", replica_capture)
+    handle = serve.get_deployment_handle("pfx", app_name="pfx")
+    base = "System: you are terse. Document: " + texts[3][:200]
+    prompts = ([base + f" q{i}" for i in range(6)]
+               + [base + f" late{i}" for i in range(4)] + ["zzz different"])
+    for p in prompts:
+        out = handle.remote({"__path__": "/v1/completions", "prompt": p,
+                             "max_tokens": 4}).result(timeout_s=300)
+        check_response("prefix", out)
+    tok = ByteTokenizer()
+    where = {}
+    for rid, served in on_replicas("pfx", replica_captured).items():
+        for ids, _out, finish, err in served:
+            check(err is None, f"prefix: {err}")
+            where[tok.decode(ids)] = rid
+    late = {where[p] for p in prompts[6:10]}
+    check(len(late) == 1, f"shared-prefix prompts spread over {late}")
+    (sticky,) = late
+    shared = sum(where[p] == sticky for p in prompts[:10]) / 10
+    counts = replica_counts("pfx")
+    check(counts["flash_attention"] > 0 and counts["rms_norm"] > 0,
+          f"serve_prefix: no K1/K4 in the replicas: {counts}")
+    serve.delete("pfx")
+    return dict(start_s=start_s, shared_prefix_on_one_replica=shared,
+                replicas_used=len(set(where.values()))), counts
+
+
+def serve_disagg(rt, port, texts, shared):
+    """Llama-3-8B (full width and depth) split into a prefill and a
+    decode replica on half the card each behind the disaggregating
+    router: phase 4's prompts through the proxy equal serve_llm's (text,
+    usage, ids), one streamed request, and the K/V block's size and
+    hand-off."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.disagg import build_disagg_app
+    cfg = serve_config("dis")
+    t0 = time.perf_counter()
+    serve.run(build_disagg_app(cfg), name="dis", route_prefix="/dis",
+              timeout_s=SERVE_READY_S)
+    start_s = time.perf_counter() - t0
+    for dep in ("dis-prefill", "dis-decode"):
+        on_replicas(dep, replica_launches, True)
+    on_replicas("dis-decode", replica_capture)
+    bodies, request_s = [], []
+    for i, text in enumerate(texts):
+        t1 = time.perf_counter()
+        bodies.append(http_ok(f"disagg {i}", port, "/dis/v1/completions",
+                              {"prompt": text, "max_tokens": NEW_TOKENS}))
+        request_s.append(time.perf_counter() - t1)
+    for body, want in zip(bodies, shared["bodies"]):
+        check(body["choices"][0]["text"] == want["choices"][0]["text"]
+              and body["usage"] == want["usage"],
+              "a disaggregated answer differs from serve_llm's")
+    (served,) = on_replicas("dis-decode", replica_captured).values()
+    rows = stream_rows(served, shared["outs"])
+    check(all(r["exact"] for r in rows),
+          f"disaggregated ids differ from serve_llm's: {rows}")
+    status, headers, raw = http(port, "/dis/v1/completions", {
+        "prompt": texts[3], "max_tokens": NEW_TOKENS, "stream": True})
+    check(status == 200, f"disagg stream: HTTP {status}")
+    events = sse_events("disagg stream", headers, raw)
+    check("".join(e["choices"][0]["text"] for e in events)
+          == bodies[3]["choices"][0]["text"]
+          and events[-1]["usage"] == bodies[3]["usage"],
+          "the disaggregated stream differs from the non-streamed answer")
+    prefill = serve.get_deployment_handle("dis-prefill", app_name="dis")
+    t1 = time.perf_counter()
+    block = prefill.prefill.remote(texts[3]).result(timeout_s=300)
+    fetch_ms = (time.perf_counter() - t1) * 1e3
+    counts = {dep: replica_counts(dep) for dep in ("dis-prefill",
+                                                    "dis-decode")}
+    check(counts["dis-prefill"]["flash_attention"] > 0
+          and counts["dis-prefill"]["rms_norm"] > 0,
+          f"the prefill replica did not launch K1/K4: {counts}")
+    check(counts["dis-decode"]["rms_norm"] > 0,
+          f"the decode replica did not launch K4: {counts}")
+    serve.delete("dis")
+    return dict(
+        start_s=start_s, request_s=request_s, rows=rows,
+        kv_shape=list(block["ks"].shape), kv_dtype=block["ks"].dtype,
+        kv_mb=(block["ks"].nbytes + block["vs"].nbytes) / 1e6,
+        kv_handoff_ms=events[-1].get("kv_handoff_ms"),
+        prefill_to_driver_ms=fetch_ms, launches_by_replica=counts), \
+        add_counts(counts["dis-prefill"], counts["dis-decode"])
+
+
+def run_serve(dev, card, texts, prompts, outs_bf16):
+    """The Serve phases on one port runtime and one HTTP proxy; the card's
+    free memory must come back once Serve and the runtime are shut
+    down. Returns the launches, the replicas' and this process's."""
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    free()
+    free_before = torch.cuda.mem_get_info(dev)[0]
+    total = {name: 0 for name in _counted()}
+    shared = {}
+    t0 = time.perf_counter()
+    rt = ray_tpu_torch.init(object_store_memory=SERVE_ARENA_BYTES)
+    try:
+        serve.start(proxy=True, http_options=serve.HTTPOptions(port=0))
+        port = serve._proxy.port
+        # a warm pool: the replicas after serve_llm's (which takes the
+        # whole card, 1.0 of it) start in pooled workers, the disagg
+        # router in the CPU one
+        warm = [ray_tpu_torch.remote(num_gpus=0.01)(warm_worker).remote()
+                for _ in range(SERVE_WARM_GPU_WORKERS)]
+        warm.append(ray_tpu_torch.remote(warm_worker).remote())
+        pids = ray_tpu_torch.get(warm, timeout=SERVE_READY_S)
+        emit("serve_start", seconds=time.perf_counter() - t0,
+             warm_workers=len(set(pids)))
+        phases = [("serve_llm", serve_llm,
+                   (rt, port, texts, prompts, outs_bf16, shared)),
+                  ("serve_multiplex", serve_multiplex, (rt, port, texts)),
+                  ("serve_prefix", serve_prefix, (rt, port, texts)),
+                  ("serve_disagg", serve_disagg, (rt, port, texts, shared))]
+        for name, fn, args in phases:
+            reset_counts()
+            t0 = time.perf_counter()
+            fields, counts = fn(*args)
+            emit(name, seconds=time.perf_counter() - t0, card=card,
+                 launches=counts, **fields)
+            total = add_counts(total, counts)
+    finally:
+        _stop_runtime()
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 60
+    while True:  # replica processes exit after the runtime's shutdown
+        free_after = torch.cuda.mem_get_info(dev)[0]
+        if free_after >= free_before - SERVE_FREED_SLACK or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    emit("serve_memory", free_before_gb=free_before / 1e9,
+         free_after_gb=free_after / 1e9,
+         wait_s=time.perf_counter() - t0)
+    check(free_after >= free_before - SERVE_FREED_SLACK,
+          f"the card's free memory did not come back: {free_before} -> "
+          f"{free_after} bytes")
     return total
 
 
@@ -4942,7 +5549,12 @@ def main() -> int:
     free()
 
     rng = __import__("numpy").random.default_rng(SEED)
-    prompts = [rng.integers(0, 128256, n).tolist() for n in PROMPT_LENS]
+    # printable ASCII after the byte tokenizer's BOS: the engine phases
+    # take these ids, the Serve phases the same prompts as text
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    texts = [bytes(rng.integers(32, 127, n - 1).tolist()).decode("ascii")
+             for n in PROMPT_LENS]
+    prompts = [ByteTokenizer().encode(t) for t in texts]
     # one set of Llama-3-8B bf16 weights for every full-width engine
     from ray_tpu_torch.models import LlamaConfig, llama_init
     t0 = time.perf_counter()
@@ -4964,6 +5576,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    counts_serve = run_serve(dev, smi, texts, prompts, outs_bf16)
 
     prefill_vs_cpu = end_to_end_vs_cpu(dev)
     emit("end_to_end_vs_cpu", **prefill_vs_cpu)
@@ -5016,7 +5629,8 @@ def main() -> int:
                       + counts_ckpt[kname] + counts_models[kname]
                       + counts_seq[kname] + counts_sharded[kname]
                       + counts_vision[kname] + counts_sync[kname]
-                      + counts_trainer[kname] + counts_pipe[kname]),
+                      + counts_trainer[kname] + counts_pipe[kname]
+                      + counts_serve[kname]),
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -1,16 +1,17 @@
 """ray_tpu_torch.serve: model serving on the port's runtime (port of
 ray_tpu/serve/__init__.py; reference: python/ray/serve/ — controller,
-replicas, router, autoscaling, batching, multiplexing, composition
-through handles), beside the OpenAI-compatible ``LLMServer`` (``serve/llm.py``, loaded on
-first access).
+replicas, router and proxy, autoscaling, batching, multiplexing,
+composition through handles), with the OpenAI-compatible LLM surface
+(``serve/llm.py``: ``LLMServer``, ``MultiplexLLMServer``,
+``build_llm_deployment``, ``build_openai_app``; loaded on first access).
 
 The controller is a named actor on ``ray_tpu_torch``'s runtime, each
 replica an actor; ``serve.run`` returns the ingress
-``DeploymentHandle``. Not ported yet, each raising
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 3 (the LLM
-surface on Serve): the HTTP and gRPC proxies (``start(proxy=True)``,
-``grpc_port=``), the prefix-aware router, ``schema.py``'s declarative
-deploy (``deploy_config``) and local testing mode.
+``DeploymentHandle``. ``start(proxy=True)`` starts the HTTP proxy in
+this process and ``start(grpc_port=)`` the gRPC ingress (``grpc`` is
+imported only then); ``run(..., local_testing_mode=True)`` builds the
+deployment graph in-process with no runtime; ``deploy_config`` applies
+a declarative config.
 """
 
 from __future__ import annotations
@@ -33,13 +34,17 @@ from ray_tpu_torch.serve.deployment import (
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
 
-_UNPORTED = "is not ported yet (ROADMAP.md Queue 1 item 3)"
+_proxy = None
+_grpc_proxy = None
+
+_LLM_NAMES = ("LLMConfig", "LLMServer", "MultiplexLLMServer",
+              "build_llm_deployment", "build_openai_app")
 
 
 def __getattr__(name):
     # The LLM surface imports torch and the engine: a replica process
     # that serves something else does not pay for it.
-    if name in ("LLMConfig", "LLMServer"):
+    if name in _LLM_NAMES:
         from ray_tpu_torch.serve import llm
         return getattr(llm, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
@@ -60,23 +65,34 @@ def _get_or_start_controller():
 
 def start(http_options: Optional[HTTPOptions] = None,
           proxy: bool = False, grpc_port: Optional[int] = None):
-    """Start the serve control plane. The HTTP proxy (``proxy=True``,
-    which ``http_options`` configures) and the gRPC ingress
-    (``grpc_port``) raise ``NotImplementedError``."""
-    if proxy:
-        raise NotImplementedError(f"Serve's HTTP proxy {_UNPORTED}")
-    if grpc_port is not None:
-        raise NotImplementedError(f"Serve's gRPC proxy {_UNPORTED}")
-    return _get_or_start_controller()
+    """Start the serve control plane (and optionally the HTTP proxy
+    and/or the gRPC ingress — reference: serve's HTTP + gRPC proxies,
+    serve/_private/proxy.py:530,706)."""
+    global _proxy, _grpc_proxy
+    controller = _get_or_start_controller()
+    if proxy and _proxy is None:
+        from ray_tpu_torch.serve.proxy import HttpProxy
+        opts = http_options or HTTPOptions()
+        _proxy = HttpProxy(controller, opts.host, opts.port)
+    if grpc_port is not None and _grpc_proxy is None:
+        from ray_tpu_torch.serve.grpc_proxy import GrpcProxy
+        _grpc_proxy = GrpcProxy(controller, port=grpc_port)
+    return controller
 
 
 def run(app: Application, *, name: str = "default",
         route_prefix: Optional[str] = "/", blocking_ready: bool = True,
         timeout_s: float = 60.0, local_testing_mode: bool = False):
     """Deploy an application; returns the ingress handle
-    (reference: python/ray/serve/api.py serve.run:694)."""
+    (reference: python/ray/serve/api.py serve.run:694).
+
+    ``local_testing_mode=True`` instantiates the whole deployment
+    graph in-process — no controller, no cluster, no
+    ray_tpu_torch.init — and returns a handle with DeploymentHandle
+    semantics (reference: serve/_private/local_testing_mode.py:49)."""
     if local_testing_mode:
-        raise NotImplementedError(f"Serve's local testing mode {_UNPORTED}")
+        from ray_tpu_torch.serve.local_mode import run_local
+        return run_local(app)
     controller = _get_or_start_controller()
     specs = flatten_application(app, name, route_prefix)
     ray_tpu_torch.get(controller.deploy_application.remote(name, specs))
@@ -120,8 +136,15 @@ def delete(name: str) -> None:
 
 
 def shutdown() -> None:
-    """Remove every application, stop the controller and forget the
-    driver's routers and admission state."""
+    """Stop the proxies, remove every application, stop the controller
+    and forget the driver's routers and admission state."""
+    global _proxy, _grpc_proxy
+    if _proxy is not None:
+        _proxy.stop()
+        _proxy = None
+    if _grpc_proxy is not None:
+        _grpc_proxy.stop()
+        _grpc_proxy = None
     if not ray_tpu_torch.is_initialized():
         return
     try:
@@ -138,19 +161,23 @@ def shutdown() -> None:
     reset_admission()
 
 
-def deploy_config(config):
-    """Declarative deploy (ray_tpu/serve/schema.py) is not ported."""
-    raise NotImplementedError(f"Serve's declarative deploy {_UNPORTED}")
+def deploy_config(config: dict):
+    """Apply a declarative application config dict (reference:
+    serve/schema.py ServeDeploySchema + REST deploy)."""
+    from ray_tpu_torch.serve.schema import deploy_config as _deploy
+    return _deploy(config)
 
 
 def deploy_config_file(path: str):
-    raise NotImplementedError(f"Serve's declarative deploy {_UNPORTED}")
+    """Apply a YAML config file (same schema as deploy_config)."""
+    from ray_tpu_torch.serve.schema import deploy_config_file as _deploy_file
+    return _deploy_file(path)
 
 
 __all__ = [
     "Application", "AutoscalingConfig", "BackpressureError",
     "Deployment", "DeploymentConfig", "DeploymentHandle",
-    "DeploymentResponse", "HTTPOptions", "LLMConfig", "LLMServer", "batch",
+    "DeploymentResponse", "HTTPOptions", *_LLM_NAMES, "batch",
     "delete", "deploy_config", "deploy_config_file", "deployment",
     "get_app_handle", "get_deployment_handle", "get_multiplexed_model_id",
     "multiplexed", "run", "shutdown", "start", "status",

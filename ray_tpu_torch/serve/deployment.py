@@ -17,18 +17,6 @@ from ray_tpu_torch.core import serialization
 from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig
 
 
-# The prefix-aware router (ray_tpu/serve/prefix_router.py) comes with
-# the LLM surface on Serve.
-UNPORTED_ROUTER = ("the prefix-aware request router is not ported yet "
-                   "(ROADMAP.md Queue 1 item 3); request_router='pow2' is")
-
-
-def _check_router(request_router: str) -> None:
-    if request_router != "pow2":
-        raise NotImplementedError(
-            f"request_router={request_router!r}: {UNPORTED_ROUTER}")
-
-
 class Application:
     """A bound deployment graph node (reference: serve's built
     Application). ``Deployment.bind(*args)`` captures init args; nested
@@ -75,7 +63,6 @@ class Deployment:
         if user_config is not None:
             cfg.user_config = dict(user_config)
         if request_router is not None:
-            _check_router(request_router)
             cfg.request_router = request_router
         return Deployment(self.func_or_class, name or self.name, cfg)
 
@@ -90,8 +77,6 @@ def deployment(_func_or_class=None, *, name: Optional[str] = None,
                autoscaling_config=None, ray_actor_options=None,
                user_config=None, request_router: str = "pow2"):
     """``@serve.deployment`` (reference: python/ray/serve/api.py)."""
-
-    _check_router(request_router)
 
     def make(target) -> Deployment:
         cfg = DeploymentConfig(

@@ -52,9 +52,12 @@ def _get_router(deployment_name: str, controller) -> Router:
         if router is not None and deployment_name not in \
                 _routers_unresolved:
             return router  # another thread resolved it meanwhile
-        # "pow2" is the only policy a deployment takes in the port
-        # (deployment.py refuses the prefix router)
-        if policy is not None:
+        if policy == "prefix_aware":
+            from ray_tpu_torch.serve.prefix_router import PrefixAwareRouter
+            if not isinstance(router, PrefixAwareRouter):
+                router = PrefixAwareRouter(deployment_name, controller)
+            _routers_unresolved.discard(deployment_name)
+        elif policy is not None:
             if router is None:
                 router = Router(deployment_name, controller)
             _routers_unresolved.discard(deployment_name)

@@ -1,4 +1,5 @@
-"""The OpenAI-compatible serving surface: LLMConfig and LLMServer
+"""The OpenAI-compatible serving surface on Serve: LLMConfig,
+LLMServer, MultiplexLLMServer, build_llm_deployment and build_openai_app
 (port of ray_tpu/serve/llm.py).
 
 An ``LLMServer`` owns one ``ContinuousBatchingEngine`` and a stepper
@@ -7,15 +8,17 @@ its decode batches. It answers OpenAI ``completions`` and
 ``chat_completions`` (streaming, ``n`` choices, stop strings, logprobs,
 ``response_format`` and tools through guided decoding), ``embeddings``
 and ``score``, routed by path in ``__call__`` as the reference's replica
-is.
+is. ``build_openai_app`` deploys it (or ``MultiplexLLMServer``, for many
+models routed by the request's ``model``) as Serve replicas behind the
+HTTP proxy.
 
-What differs: the reference's constructor takes the runtime's
-serialized ``params_blob``; this one takes the parameter tree itself
-(``params=``, on the engine's device) and ``device=``. The stepper
-thread makes the engine's device current before it steps, because the
-kernels launch on the current CUDA device, which is per thread. The
-multi-model server, the deployment builders and the HTTP app use the
-runtime's Serve and are not ported.
+What differs: the constructors also take ``device=``. The builders
+take ``device=None`` (the card) or ``"cpu"``: on the card each replica
+asks the runtime for a share of a GPU (``num_gpus``, 1 by default),
+since a worker that asks for none sees no card; with ``"cpu"`` it asks
+for none and builds its engine on the CPU. The stepper thread makes the
+engine's device current before it steps, because the kernels launch on
+the current CUDA device, which is per thread.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch import serve
+from ray_tpu_torch._device import DeviceLike, device_type, resolve_device
 from ray_tpu_torch.llm.engine import (
     ContinuousBatchingEngine, EngineConfig, EngineSaturatedError,
     GenerationRequest)
@@ -49,18 +53,66 @@ from ray_tpu_torch.util import tracing
 _MAX_CONSTRAINTS = 32
 
 
+def params_blob(params) -> bytes:
+    """A parameter tree as the bytes a replica receives: host copies of
+    its tensors (bf16 as uint16 bits), serialized once in the driver."""
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.util.host_tensor import tree_to_host
+    return serialization.dumps(tree_to_host(params))
+
+
+def params_from_blob(blob: bytes, device: DeviceLike = None):
+    """:func:`params_blob`'s tree, its tensors on ``device``."""
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.util.host_tensor import tree_from_host
+    return tree_from_host(serialization.loads(blob), resolve_device(device))
+
+
 @dataclass
 class LLMConfig:
-    """The reference's LLMConfig: model id, engine config and generation
-    defaults. The reference's deployment sizing (``num_replicas``,
-    ``max_ongoing_requests``, ``prefix_routing``) is read only by its
-    deployment builders and comes back with them."""
+    """Reference analog: serve/llm LLMConfig (model_loading_config +
+    engine_kwargs + deployment_config)."""
 
     model_id: str = "llama-tiny"
     engine: EngineConfig = field(default_factory=EngineConfig)
+    num_replicas: int = 1
+    max_ongoing_requests: int = 16
+    # route by prompt-prefix affinity (KV/prefix-cache locality;
+    # reference: llm/_internal/serve/routing_policies/prefix_aware/)
+    prefix_routing: bool = False
     # generation defaults
     max_tokens: int = 64
     temperature: float = 0.0
+
+
+def stream_text_deltas(tokenizer, request):
+    """Incremental detokenization over a request's stream queue: decode
+    the full output each step and emit the text delta, holding back
+    while the tail is an incomplete multi-byte/multi-piece character
+    (U+FFFD) so streamed text matches the non-streamed decode exactly
+    (reference: vLLM output streams behind serve token streaming). The
+    disaggregated decode replica streams through it."""
+    out_ids: List[int] = []
+    emitted = ""
+    while True:
+        token = request.stream_queue.get()
+        if token is None:
+            break
+        if token in request.stop_ids:
+            continue
+        out_ids.append(token)
+        text = tokenizer.decode(out_ids)
+        if text.endswith("�"):
+            continue
+        delta = text[len(emitted):]
+        if delta:
+            emitted = text
+            yield delta
+    if request.error is not None:
+        raise RuntimeError(request.error)
+    final = tokenizer.decode(out_ids)
+    if len(final) > len(emitted):
+        yield final[len(emitted):]
 
 
 def stream_token_deltas(tokenizer, request):
@@ -103,15 +155,18 @@ def stream_token_deltas(tokenizer, request):
 class LLMServer:
     """One engine and its stepper thread behind the OpenAI surface.
 
-    ``params``: the port's parameter tree on ``device`` (None: random
-    weights from ``config.engine.seed``); ``device``: None means the
-    current CUDA device, as for the engine (the reference takes the
-    runtime's serialized ``params_blob`` instead). Call ``stop()`` when
-    done: it ends the stepper thread."""
+    ``params``: the port's parameter tree on ``device``, or the
+    serialized blob a replica receives (the reference's ``params_blob``:
+    ``params_blob(tree)``, host copies loaded onto ``device``); None
+    means random weights from ``config.engine.seed``. ``device``: None
+    means the current CUDA device, as for the engine. Call ``stop()``
+    when done: it ends the stepper thread."""
 
     def __init__(self, config: LLMConfig, params=None,
                  device: DeviceLike = None):
         self.config = config
+        if isinstance(params, (bytes, bytearray, memoryview)):
+            params = params_from_blob(params, device)
         self.engine = ContinuousBatchingEngine(config.engine, params,
                                                device=device)
         self.tokenizer = get_tokenizer(config.engine.tokenizer)
@@ -1175,3 +1230,180 @@ class LLMServer:
                                        for r in results)),
             },
         }
+
+
+class MultiplexLLMServer:
+    """One deployment serving MANY models: requests route by the OpenAI
+    ``model`` field to a per-replica LRU of resident LLMServer engines
+    via @serve.multiplexed; unknown ids get a 404 model_not_found and
+    per-model request/token counters feed /metrics (reference:
+    serve/llm/__init__.py:178 multi-model build_openai_app +
+    _internal/serve routing by model id). An evicted model's ``stop()``
+    joins its stepper and fails its in-flight requests."""
+
+    def __init__(self, configs: List[LLMConfig],
+                 params_blobs: Optional[Dict[str, bytes]] = None,
+                 max_models_per_replica: int = 2,
+                 device: DeviceLike = None):
+        from ray_tpu_torch.util import metrics as metrics_mod
+        if not configs:
+            raise ValueError("MultiplexLLMServer needs >= 1 LLMConfig")
+        self._configs: Dict[str, LLMConfig] = {}
+        for c in configs:
+            if c.model_id in self._configs:
+                raise ValueError(f"duplicate model_id {c.model_id!r}")
+            self._configs[c.model_id] = c
+        self._params = dict(params_blobs or {})
+        self._device = device
+        # Wire the instance's LRU size through @serve.multiplexed at
+        # init time (the decorator binds max_num_models_per_replica at
+        # decoration; replicas construct this class locally, so the
+        # bound loader never needs to pickle).
+        loader = serve.multiplexed(
+            max_num_models_per_replica=max_models_per_replica)(
+                MultiplexLLMServer._load_model)
+        self._load = lambda mid: loader(self, mid)
+        self._requests = metrics_mod.Counter(
+            "ray_tpu_serve_llm_requests_total", "LLM requests by model",
+            tag_keys=("model",))
+        self._tokens = metrics_mod.Counter(
+            "ray_tpu_serve_llm_generated_tokens_total",
+            "Generated tokens by model", tag_keys=("model",))
+
+    def _load_model(self, model_id: str) -> LLMServer:
+        return LLMServer(self._configs[model_id],
+                         self._params.get(model_id), device=self._device)
+
+    def _resolve(self, body: Dict[str, Any]):
+        """model id -> resident LLMServer, or a 404 error dict."""
+        model = body.get("model")
+        if model is None and len(self._configs) == 1:
+            model = next(iter(self._configs))
+        if model not in self._configs:
+            return None, {
+                "__status__": 404,
+                "error": {
+                    "message": f"model {model!r} not found; serving "
+                               f"{sorted(self._configs)}",
+                    "type": "invalid_request_error",
+                    "code": "model_not_found"}}
+        self._requests.inc(tags={"model": model})
+        return self._load(model), None
+
+    def _count_tokens(self, model: str, result_or_n) -> None:
+        n = (result_or_n if isinstance(result_or_n, (int, float))
+             else result_or_n.get("completion_tokens", 0))
+        if n:
+            self._tokens.inc(n, tags={"model": model})
+
+    def __call__(self, request: Dict[str, Any]) -> Any:
+        path = request.get("__path__", "")
+        if path.endswith("/models"):
+            return {"object": "list",
+                    "data": [{"id": mid, "object": "model"}
+                             for mid in self._configs]}
+        server, err = self._resolve(request)
+        if err is not None:
+            return err
+        out = server(request)
+        # count completion tokens for non-streaming responses; the
+        # streaming paths count per-chunk inside the wrapped generator
+        if isinstance(out, dict):
+            usage = out.get("usage") or {}
+            self._count_tokens(request.get("model")
+                               or server.config.model_id,
+                               usage.get("completion_tokens", 0))
+            return out
+        if hasattr(out, "__iter__") and not isinstance(out, (str, bytes)):
+            model = request.get("model") or server.config.model_id
+
+            def counted():
+                n = 0
+                for chunk in out:
+                    n += 1
+                    yield chunk
+                self._count_tokens(model, n)
+            return counted()
+        return out
+
+
+def replica_placement(device: DeviceLike, num_gpus: Optional[float],
+                      default_gpus: float = 1.0):
+    """(``ray_actor_options``, the replica's ``device``) for an LLM
+    replica: on the card (``device`` None or CUDA) a share of a GPU,
+    ``num_gpus`` or ``default_gpus``, and the replica's own current
+    card; with ``"cpu"`` no GPU and the CPU. Without a GPU in this
+    process, ``device=None`` raises (the device rule)."""
+    if device_type(device) == "cuda":
+        gpus = default_gpus if num_gpus is None else float(num_gpus)
+        if not 0.0 < gpus <= 1.0:
+            raise ValueError(f"num_gpus={gpus}: an LLM replica takes a "
+                             "share of one card, in (0, 1]")
+        return {"num_gpus": gpus}, None
+    if num_gpus:
+        raise ValueError("device='cpu' replicas take no GPU share")
+    return {}, "cpu"
+
+
+def build_llm_deployment(config: LLMConfig, params=None,
+                         name: Optional[str] = None, *,
+                         device: DeviceLike = None,
+                         num_gpus: Optional[float] = None):
+    """An Application serving `config` (reference:
+    serve/llm build_llm_deployment). ``device``/``num_gpus``: see
+    :func:`replica_placement`."""
+    actor_options, replica_device = replica_placement(device, num_gpus)
+    blob = params_blob(params) if params is not None else None
+    dep = serve.deployment(
+        LLMServer,
+        name=name or config.model_id,
+        num_replicas=config.num_replicas,
+        max_ongoing_requests=config.max_ongoing_requests,
+        ray_actor_options=actor_options,
+        request_router=("prefix_aware" if config.prefix_routing
+                        else "pow2"))
+    return dep.bind(config, blob, replica_device)
+
+
+def build_openai_app(llm_configs: List[LLMConfig] = None, *,
+                     config: LLMConfig = None, params=None,
+                     params_by_model: Optional[Dict[str, Any]] = None,
+                     name: str = "openai-llm",
+                     max_models_per_replica: int = 2,
+                     device: DeviceLike = None,
+                     num_gpus: Optional[float] = None):
+    """OpenAI-compatible app (reference: serve/llm/__init__.py:178
+    build_openai_app serving many models per app with model-id routing).
+
+    One config -> a plain LLMServer deployment (no routing layer).
+    Many configs -> a MultiplexLLMServer whose replicas keep an LRU of
+    resident engines and route by the request ``model`` field; unknown
+    ids answer 404 model_not_found, /v1/models lists all ids, and
+    per-model request/token counters land in /metrics. ``device`` and
+    ``num_gpus`` place the replicas (:func:`replica_placement`).
+    """
+    if config is not None:
+        return build_llm_deployment(config, params=params, device=device,
+                                    num_gpus=num_gpus)
+    configs = llm_configs or [LLMConfig()]
+    if len(configs) == 1 and params_by_model is None:
+        return build_llm_deployment(configs[0], params=params,
+                                    device=device, num_gpus=num_gpus)
+    if params is not None:
+        raise ValueError(
+            "multi-model apps take params_by_model={model_id: params}, "
+            "not params= (which model would it apply to?)")
+    actor_options, replica_device = replica_placement(device, num_gpus)
+    blobs = {mid: params_blob(p)
+             for mid, p in (params_by_model or {}).items()}
+    dep = serve.deployment(
+        MultiplexLLMServer, name=name,
+        num_replicas=max(c.num_replicas for c in configs),
+        max_ongoing_requests=max(c.max_ongoing_requests
+                                 for c in configs),
+        ray_actor_options=actor_options,
+        request_router=("prefix_aware"
+                        if any(c.prefix_routing for c in configs)
+                        else "pow2"))
+    return dep.bind(configs, blobs, max_models_per_replica,
+                    replica_device)

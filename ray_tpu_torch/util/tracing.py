@@ -1,10 +1,18 @@
-"""Trace context and named spans (port of ray_tpu/util/tracing.py).
+"""Trace context, named spans and profile spans (port of
+ray_tpu/util/tracing.py).
 
 A W3C-traceparent-shaped (``trace_id``, ``span_id``) pair lives in a
-context variable; ``span()`` opens a child of the active context (or a
-fresh root) for the duration of a with-block, so nested spans attach
-to it. Without a runtime the reference's ``record_span`` exports
-nothing, and neither does this copy: the port has no trace store yet.
+context variable. Every ``.remote()`` stamps the active context into
+its task spec, and a worker re-establishes it before user code runs, so
+one ``trace_id`` follows a request across the Serve proxy, router,
+replica and engine. ``span()`` opens a child of the active context (or
+a fresh root) for the duration of a with-block and, when it ends,
+ships the span to the runtime's trace store in the GCS
+(``gcs.spans_for_trace``): a direct append on the driver, one
+control-plane call on a worker, nothing without a runtime. The proxy
+parses and echoes ``traceparent`` headers (``parse_traceparent``,
+``format_traceparent``). ``profile(name)`` records a span on the
+running task's timeline track.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ class TraceContext:
     span_id: str
 
     def traceparent(self) -> str:
-        return f"00-{self.trace_id}-{self.span_id}-01"
+        return format_traceparent(self)
 
 
 _trace_var: ContextVar[Optional[TraceContext]] = ContextVar(
@@ -35,6 +43,11 @@ _trace_var: ContextVar[Optional[TraceContext]] = ContextVar(
 def new_trace_id() -> str:
     """32 lowercase hex chars (W3C traceparent trace-id width)."""
     return uuid.uuid4().hex
+
+
+def new_span_id() -> str:
+    """16 lowercase hex chars (W3C traceparent parent-id width)."""
+    return uuid.uuid4().hex[:16]
 
 
 def task_span_id(task_id) -> str:
@@ -59,28 +72,70 @@ def reset_trace_context(token) -> None:
     _trace_var.reset(token)
 
 
+def parse_traceparent(header: Optional[str]) -> Optional[TraceContext]:
+    """Parse a W3C ``traceparent`` header (``00-<trace>-<span>-<flags>``).
+    Returns None on absent or malformed input: a bad client header
+    degrades to a fresh root trace, never a 500."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) != 4:
+        return None
+    _version, trace_id, span_id, _flags = parts
+    if len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        int(trace_id, 16), int(span_id, 16)
+    except ValueError:
+        return None
+    if set(trace_id) == {"0"} or set(span_id) == {"0"}:
+        return None  # all-zero ids are invalid per the spec
+    return TraceContext(trace_id.lower(), span_id.lower())
+
+
+def format_traceparent(ctx: TraceContext) -> str:
+    return f"00-{ctx.trace_id}-{ctx.span_id}-01"
+
+
+_UNSET = object()
+
+
 def record_span(name: str, component: str, t_start: float,
                 duration: float, ctx: TraceContext,
                 parent_span_id: Optional[str] = None,
                 tags: Optional[Dict[str, Any]] = None) -> None:
-    """Ship one finished span to the trace store. The port has no
-    runtime and so no store: like the reference with no runtime up, it
-    drops the span."""
-
-
-_UNSET = object()
+    """Ship one finished span to the GCS trace store (driver: direct
+    append; worker: one control-plane call; no runtime: dropped).
+    Best-effort: tracing never fails the traced operation."""
+    span_tuple = (ctx.trace_id, ctx.span_id, parent_span_id, str(name),
+                  str(component), t_start, duration,
+                  dict(tags) if tags else None)
+    try:
+        from ray_tpu_torch.core import runtime as runtime_mod
+        rt = runtime_mod.get_runtime_or_none()
+        if rt is None:
+            return
+        if getattr(rt, "is_driver", False):
+            rt.gcs.add_trace_span(span_tuple)
+        else:
+            rt.gcs_call("trace_add_span", span_tuple)
+    except Exception:
+        pass  # span export is best-effort observability
 
 
 @contextmanager
 def span(name: str, component: str = "app",
          tags: Optional[Dict[str, Any]] = None, parent=_UNSET):
     """A named span under the active trace (a fresh root trace when none
-    is active), current for the with-block; yields its TraceContext.
-    ``parent``: an explicit parent context, or None for a new root."""
+    is active), current for the with-block, so nested spans and
+    ``.remote()`` calls made inside attach as children; yields its
+    TraceContext. ``parent``: an explicit parent context (or None for a
+    new root), for ingress points such as the Serve proxy that carry
+    the parent in a ``traceparent`` header."""
     parent_ctx = _trace_var.get() if parent is _UNSET else parent
     ctx = TraceContext(
-        parent_ctx.trace_id if parent_ctx is not None else uuid.uuid4().hex,
-        uuid.uuid4().hex[:16])
+        parent_ctx.trace_id if parent_ctx is not None else new_trace_id(),
+        new_span_id())
     token = _trace_var.set(ctx)
     wall0 = time.time()
     p0 = time.perf_counter()
@@ -93,3 +148,23 @@ def span(name: str, component: str = "app",
                     parent_span_id=(parent_ctx.span_id
                                     if parent_ctx is not None else None),
                     tags=tags)
+
+
+@contextmanager
+def profile(name: str):
+    """Record a named span for the duration of the with-block on the
+    running task's timeline track; a no-op outside a worker task (on
+    the driver, for instance). The duration is measured on the
+    monotonic ``perf_counter`` clock, the start stays wall-clock."""
+    from ray_tpu_torch.core import runtime as runtime_mod
+    rt = runtime_mod.get_runtime_or_none()
+    spans = getattr(rt, "_profile_spans", None) if rt is not None else None
+    items = spans.value if spans is not None else None
+    wall0 = time.time()
+    p0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if items is not None:
+            items.append((str(name), wall0,
+                          wall0 + (time.perf_counter() - p0)))

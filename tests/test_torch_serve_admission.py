@@ -3,7 +3,8 @@ Serve: the unit and handle tests of tests/test_admission.py (queue caps,
 EWMA overload, Retry-After, the SLO autoscaling policy's hysteresis,
 rejection-penalty decay, the engine's reject-before-enqueue, sheds on
 the handle path kept out of the latency histogram; the HTTP 503 test
-and the prefix router's are not ported) and the controller scenarios of
+is in test_torch_serve_proxy.py, the prefix router's in
+test_torch_serve_prefix.py) and the controller scenarios of
 tests/test_serve.py (autoscaling up and down, a crashed replica
 replaced), on ``ray_tpu_torch.serve``.
 """

@@ -1,7 +1,8 @@
 """Serve's core on the port's runtime: the scenarios of tests/test_serve.py
 (deployments, routing, composition, batching, reconfiguration,
-multiplexing; the HTTP proxy is not ported) and the streaming handles of
-tests/test_serve_streaming.py, on ``ray_tpu_torch.serve``.
+multiplexing; the HTTP proxy's are in test_torch_serve_proxy.py) and the
+streaming handles of tests/test_serve_streaming.py, on
+``ray_tpu_torch.serve``.
 
 One port runtime serves the module; every replica is an actor in a port
 worker process. The deployments are local classes, shipped by value, and
@@ -218,21 +219,19 @@ def test_streaming_handle_single_value(serve_instance):
     assert list(handle.options(stream=True).remote(21)) == [42]
 
 
-def test_unported_entry_points_refuse():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serve.start(proxy=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serve.start(grpc_port=9000)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serve.deployment(request_router="prefix_aware")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serve.deploy_config({})
+def test_item_3_entry_points_are_served():
+    """The entry points the port once refused (the LLM surface on Serve) take
+    their inputs now, and no refusal naming that item is left."""
+    import pathlib
 
-    @serve.deployment
+    @serve.deployment(request_router="prefix_aware")
     def f(x):
-        return x
+        return x + 1
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        f.options(request_router="prefix_aware")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serve.run(f.bind(), local_testing_mode=True)
+    assert f.config.request_router == "prefix_aware"
+    assert f.options(request_router="pow2").config.request_router == "pow2"
+    assert serve.run(f.bind(), local_testing_mode=True).remote(1).result() \
+        == 2
+    root = pathlib.Path(serve.__file__).parent
+    for path in root.glob("*.py"):
+        assert "Queue 1 item 3" not in path.read_text(), path
